@@ -1,0 +1,282 @@
+"""The sklearn-shaped API: ``ConsensusClustering(...).fit(X)``.
+
+The port of the reference package's ``api.py`` for its dense, single-device
+path: the same constructor arguments for what this path does, the same
+``cdf_at_K_data`` result schema (``consensus_labels, hist, cdf, bin_edges,
+pac_area, mij, iij, cij`` per K), and ``areas_``, ``delta_k_``, ``best_k_``
+and ``metrics_``.  ``fit`` runs on ``cuda`` unless ``device`` says
+otherwise, and raises without a GPU when no device is given.
+
+Features of the reference package that this package does not have yet
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Unlike the reference, ``plot_cdf`` defaults to False: plotting is not
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.ops.analysis import (
+    area_under_cdf,
+    bin_edges,
+    delta_k,
+    select_best_k,
+)
+
+logger = logging.getLogger(__name__)
+
+_DEFAULT_CLUSTERER_OPTIONS = {"n_init": 3}
+_DELTA_K_THRESHOLD = 0.05
+
+
+def _not_ported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to consensus_clustering_tpu_torch yet "
+        f"(ROADMAP.md queue A, item {item}); use consensus_clustering_tpu"
+    )
+
+
+class ConsensusClustering:
+    """Monti-style consensus clustering on one GPU.
+
+    Parameters
+    ----------
+    clusterer : optional
+        A batched clusterer (``KMeans()``); None selects KMeans.  Host
+        (sklearn) clusterers are not ported (ROADMAP A8).
+    clusterer_options : dict, optional
+        Fields replaced on the clusterer (default ``{'n_init': 3}``).
+    K_range, n_iterations, subsampling, random_state, PAC_interval,
+    consensus_matrix_analysis, agg_clustering_linkage : as the reference.
+    plot_cdf : bool
+        Must be False: plotting is not ported (ROADMAP A15).
+    n_jobs, parallelization_method, memmap_folder :
+        accepted for API compatibility and ignored.
+    device : keyword-only
+        Torch device; None means ``cuda`` (raises without a GPU).
+    store_matrices : bool or 'auto', keyword-only
+        Keep per-K ``mij``/``cij`` and ``iij``; 'auto' keeps them while the
+        stacked matrices stay under ~2 GB.
+    parity_zeros, bins, chunk_size, cluster_batch, split_init,
+    reseed_clusterer_per_resample, delta_k_threshold : keyword-only,
+        as the reference (see :class:`~.config.SweepConfig`).
+    compute_dtype : keyword-only
+        "float32", or "float64" on the CPU (the parity path).
+    """
+
+    def __init__(
+        self,
+        clusterer=None,
+        clusterer_options: Optional[Dict[str, Any]] = None,
+        K_range=(2, 3),
+        n_iterations: int = 25,
+        subsampling: float = 0.8,
+        random_state: Optional[int] = None,
+        consensus_matrix_analysis: str = "PAC",
+        PAC_interval=(0.1, 0.9),
+        plot_cdf: bool = False,
+        agg_clustering_linkage: str = "average",
+        n_jobs: int = 1,
+        parallelization_method: str = "multithreading",
+        memmap_folder=None,
+        *,
+        device=None,
+        store_matrices="auto",
+        parity_zeros: bool = True,
+        bins: int = 20,
+        chunk_size: int = 8,
+        cluster_batch: Optional[int] = None,
+        split_init: bool = False,
+        reseed_clusterer_per_resample: bool = False,
+        compute_dtype: str = "float32",
+        delta_k_threshold: float = _DELTA_K_THRESHOLD,
+        compute_consensus_labels: bool = False,
+        mesh=None,
+        stream_h_block: Optional[int] = None,
+        accum_repr: str = "dense",
+        mode: str = "exact",
+        checkpoint_dir: Optional[str] = None,
+        autotune: bool = False,
+        progress_callback=None,
+    ):
+        if plot_cdf:
+            raise _not_ported("plot_cdf=True (plotting)", "A15")
+        if compute_consensus_labels:
+            raise _not_ported("compute_consensus_labels", "A8")
+        if mesh is not None:
+            raise _not_ported("mesh (multi-device sweeps)", "A13")
+        if stream_h_block is not None:
+            raise _not_ported("stream_h_block (the streaming engine)", "A5")
+        if accum_repr != "dense":
+            raise _not_ported(f"accum_repr={accum_repr!r}", "A6")
+        if mode != "exact":
+            raise _not_ported(f"mode={mode!r} (the pair estimator)", "A9")
+        if checkpoint_dir is not None:
+            raise _not_ported("checkpoint_dir (per-K resume)", "A5")
+        if autotune:
+            raise _not_ported("autotune", "A12")
+        if progress_callback is not None:
+            raise _not_ported("progress_callback", "A5")
+        if consensus_matrix_analysis not in ("PAC", "delta_k"):
+            raise ValueError(
+                f"consensus_matrix_analysis={consensus_matrix_analysis!r} "
+                "not supported (choose 'PAC' or 'delta_k')"
+            )
+        if delta_k_threshold < 0:
+            raise ValueError(
+                f"delta_k_threshold must be >= 0, got {delta_k_threshold}"
+            )
+        self.clusterer = clusterer
+        self.clusterer_options = (
+            dict(_DEFAULT_CLUSTERER_OPTIONS)
+            if clusterer_options is None else dict(clusterer_options)
+        )
+        self.K_range = K_range
+        self.n_iterations = n_iterations
+        self.subsampling = subsampling
+        self.random_state = random_state
+        self.consensus_matrix_analysis = consensus_matrix_analysis
+        self.PAC_interval = tuple(PAC_interval)
+        self.plot_cdf = plot_cdf
+        self.agg_clustering_linkage = agg_clustering_linkage
+        self.n_jobs = n_jobs
+        self.parallelization_method = parallelization_method
+        self.memmap_folder = memmap_folder
+        self.device = device
+        self.store_matrices = store_matrices
+        self.parity_zeros = parity_zeros
+        self.bins = bins
+        self.chunk_size = chunk_size
+        self.cluster_batch = cluster_batch
+        self.split_init = split_init
+        self.reseed_clusterer_per_resample = reseed_clusterer_per_resample
+        self.compute_dtype = compute_dtype
+        self.delta_k_threshold = float(delta_k_threshold)
+
+    def _resolve_clusterer(self):
+        c = KMeans() if self.clusterer is None else self.clusterer
+        if hasattr(c, "get_params") or not hasattr(c, "fit_predict"):
+            raise _not_ported(
+                f"clusterer {type(c).__name__} (host/sklearn clusterers)",
+                "A8",
+            )
+        options = self.clusterer_options
+        if not options:
+            return c
+        fields = {f.name for f in dataclasses.fields(c)}
+        unknown = set(options) - fields
+        if unknown:
+            raise ValueError(
+                f"invalid clusterer option(s) {sorted(unknown)} for "
+                f"{type(c).__name__}; valid: {sorted(fields)}"
+            )
+        return dataclasses.replace(c, **options)
+
+    def _accumulator_dtype(self):
+        """The reference's uint8/uint16 rule, uint32 beyond 2^16."""
+        if self.n_iterations < 2**8:
+            return np.uint8
+        if self.n_iterations < 2**16:
+            return np.uint16
+        return np.uint32
+
+    def _resolve_store_matrices(self, n: int) -> bool:
+        if self.store_matrices == "auto":
+            approx_bytes = 2 * len(tuple(self.K_range)) * n * n * 4
+            return approx_bytes < 2 * 2**30
+        return bool(self.store_matrices)
+
+    def fit(self, X):
+        """Run the consensus sweep; fills ``cdf_at_K_data`` and returns
+        self."""
+        if self.random_state is None:
+            raise ValueError(
+                "random_state must be an integer seed: the resample plan is "
+                "a pure function of it"
+            )
+        X = np.asarray(X)
+        if X.ndim != 2:
+            raise ValueError(f"X must be 2-D, got shape {X.shape}")
+        from consensus_clustering_tpu_torch.resilience.integrity import (
+            check_input_matrix,
+        )
+
+        problem = check_input_matrix(X)
+        if problem is not None:
+            raise ValueError(f"{problem['error']} — {problem['hint']}")
+        n, d = X.shape
+        config = SweepConfig(
+            n_samples=n,
+            n_features=d,
+            k_values=tuple(self.K_range),
+            n_iterations=self.n_iterations,
+            subsampling=self.subsampling,
+            bins=self.bins,
+            pac_interval=self.PAC_interval,
+            parity_zeros=self.parity_zeros,
+            store_matrices=self._resolve_store_matrices(n),
+            chunk_size=self.chunk_size,
+            cluster_batch=self.cluster_batch,
+            split_init=bool(self.split_init),
+            reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
+            dtype=self.compute_dtype,
+        )
+        from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+        out = run_sweep(
+            self._resolve_clusterer(), config, X, self.random_state,
+            device=self.device,
+        )
+        self._build_results(out, config)
+        return self
+
+    def _build_results(self, out: Dict[str, Any], config: SweepConfig):
+        acc_dtype = self._accumulator_dtype()
+        edges = bin_edges(config.bins)
+        iij = out["iij"].astype(acc_dtype) if config.store_matrices else None
+        entries = {}
+        for i, k in enumerate(config.k_values):
+            entry = {
+                "consensus_labels": [],
+                "hist": out["hist"][i].astype(np.float64),
+                "cdf": out["cdf"][i].astype(np.float64),
+                "bin_edges": edges,
+                "pac_area": float(out["pac_area"][i]),
+                "mij": None, "iij": None, "cij": None,
+            }
+            if config.store_matrices:
+                entry["mij"] = out["mij"][i].astype(acc_dtype)
+                entry["iij"] = iij
+                entry["cij"] = out["cij"][i]
+            entries[k] = entry
+        self.cdf_at_K_data = entries
+        ks = list(config.k_values)
+        self.areas_ = np.asarray(
+            [area_under_cdf(entries[k]["cdf"]) for k in ks], dtype=np.float64
+        )
+        self.delta_k_ = delta_k(self.areas_)
+        mode = self.consensus_matrix_analysis
+        self.best_k_ = select_best_k(
+            mode, ks,
+            [entries[k]["pac_area"] for k in ks] if mode == "PAC" else None,
+            delta_k_gains=self.delta_k_,
+            delta_k_threshold=self.delta_k_threshold,
+        )
+        timing = out["timing"]
+        self.metrics_ = {
+            "compile_seconds": timing["compile_seconds"],
+            "run_seconds": timing["run_seconds"],
+            "resamples_per_second": timing["resamples_per_second"],
+            "n_batches": 1,
+            "device": timing["device"],
+            "kernel_launches": timing["kernel_launches"],
+        }
+        if timing["device_memory"]:
+            self.metrics_["device_memory"] = timing["device_memory"]

@@ -1,0 +1,69 @@
+"""Carry the reference package's state across, so both compute the same thing.
+
+The inputs are plain Python and numpy values, never JAX objects: pass
+``dataclasses.asdict`` of a reference ``SweepConfig`` or ``KMeans``, and
+``np.asarray(jax.random.key_data(key))`` for a key.  Initial centroids pass
+as numpy arrays directly.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+
+# Reference SweepConfig fields with their defaults that this port can run
+# only at those defaults (each belongs to an engine not ported yet).
+_UNPORTED_DEFAULTS = {
+    "k_interleave": False,
+    "stream_h_block": None,
+    "adaptive_tol": None,
+    "accum_repr": "dense",
+}
+# Fields that only choose an execution strategy, never a result.
+_STRATEGY_ONLY = {
+    "adaptive_patience", "adaptive_min_h", "integrity_check_every",
+    "use_packed_kernel", "fuse_block", "use_pallas",
+}
+
+
+def config_from_jax(fields: Dict[str, Any]) -> SweepConfig:
+    """A port :class:`SweepConfig` from ``dataclasses.asdict`` of the
+    reference's; raises for a field set to an engine not ported yet."""
+    own = {f for f in SweepConfig.__dataclass_fields__}
+    kept = {}
+    for name, value in fields.items():
+        if name in own:
+            kept[name] = tuple(value) if name in (
+                "k_values", "pac_interval") else value
+        elif name in _UNPORTED_DEFAULTS:
+            if value != _UNPORTED_DEFAULTS[name]:
+                raise NotImplementedError(
+                    f"SweepConfig.{name}={value!r} is not ported yet"
+                )
+        elif name not in _STRATEGY_ONLY:
+            raise ValueError(f"unknown SweepConfig field {name!r}")
+    return SweepConfig(**kept)
+
+
+def kmeans_from_jax(fields: Dict[str, Any]) -> KMeans:
+    """A port :class:`KMeans` from the reference's fields.  Its kernel knobs
+    (``use_pallas``, ``pallas_interpret``) have no counterpart: on the card
+    the port's Lloyd step is always its kernel."""
+    return KMeans(
+        n_init=int(fields.get("n_init", 1)),
+        max_iter=int(fields.get("max_iter", 100)),
+        tol=float(fields.get("tol", 1e-4)),
+    )
+
+
+def key_from_jax(key_data: np.ndarray, device=None) -> torch.Tensor:
+    """A port key (..., 2) int64 from ``jax.random.key_data`` (uint32)."""
+    data = np.asarray(key_data)
+    if data.shape[-1:] != (2,):
+        raise ValueError(f"key data must end in a pair of words, got {data.shape}")
+    return torch.as_tensor(data.astype(np.int64), device=device)

@@ -1,0 +1,143 @@
+"""Consensus-matrix analysis: Cij, histogram/CDF, PAC, Delta(K), best K.
+
+Reference semantics (the reference package's ``ops/analysis.py``):
+``Cij = Mij / (Iij + 1e-6)`` in f32 with the diagonal forced to 1.0; a
+``bins``-bin histogram over the strict upper triangle, optionally with the
+reference's N(N+1)/2 structural zeros in bin 0 (``parity_zeros``); PAC is
+``cdf[hi - 1] - cdf[lo]`` with host-computed bin indices.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from consensus_clustering_tpu_torch.config import pac_indices
+
+__all__ = [
+    "consensus_matrix", "hist_edges", "masked_histogram_counts",
+    "cdf_pac_from_counts", "pac_indices", "bin_edges", "area_under_cdf",
+    "delta_k", "select_best_k",
+]
+
+
+def consensus_matrix(mij: torch.Tensor, iij: torch.Tensor) -> torch.Tensor:
+    """``Cij = Mij / (Iij + 1e-6)`` in f32, diagonal 1.0.
+
+    The regulariser is added as an f32 constant, so the add and the divide
+    are each one correctly rounded f32 operation, as in the reference
+    package.
+    """
+    eps = torch.tensor(1e-6, dtype=torch.float32, device=mij.device)
+    cij = mij.to(torch.float32) / (iij.to(torch.float32) + eps)
+    cij.fill_diagonal_(1.0)
+    return cij
+
+
+def hist_edges(bins: int) -> np.ndarray:
+    """The f32-rounded ``linspace(0, 1, bins + 1)`` bin edges.
+
+    Comparing f32 values against these is exact: no f32 value lies strictly
+    between an f64 edge and its nearest f32, so every membership test agrees
+    with ``np.histogram``'s f64 one.
+    """
+    return np.linspace(0.0, 1.0, bins + 1).astype(np.float32)
+
+
+def masked_histogram_counts(
+    values: torch.Tensor, mask: torch.Tensor, bins: int
+) -> torch.Tensor:
+    """(bins,) int32 counts of ``values[mask]`` over [0, 1].
+
+    Membership is ``edges[b] <= v < edges[b + 1]``, the last bin
+    right-closed, as ``np.histogram``.  One masked compare-and-sum per bin
+    keeps the working set at one (R, C) mask instead of a (bins, R, C) one.
+    """
+    edges = torch.tensor(hist_edges(bins), device=values.device)
+    counts = []
+    for b in range(bins):
+        above = values >= edges[b]
+        below = values <= edges[b + 1] if b == bins - 1 else (
+            values < edges[b + 1]
+        )
+        counts.append((above & below & mask).sum())
+    return torch.stack(counts).to(torch.int32)
+
+
+def cdf_pac_from_counts(
+    counts: torch.Tensor,
+    n_samples: int,
+    pac_lo_idx: int,
+    pac_hi_idx: int,
+    parity_zeros: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hist, cdf, pac_area) in f32 from strict-upper-triangle bin counts."""
+    n = n_samples
+    bins = counts.shape[0]
+    counts = counts.to(torch.int64).clone()
+    if parity_zeros:
+        # triu(.., k=1).ravel() keeps the zeroed lower triangle and the
+        # diagonal: N(N+1)/2 extra zeros in bin 0, density over N^2.
+        counts[0] += n * (n + 1) // 2
+        total = float(n) * float(n)
+    else:
+        total = float(n) * (n - 1) / 2.0
+    f32 = dict(dtype=torch.float32, device=counts.device)
+    hist = counts.to(torch.float32) / torch.tensor(total * (1.0 / bins), **f32)
+    cdf = torch.cumsum(counts, 0).to(torch.float32) / torch.tensor(total, **f32)
+    pac_area = cdf[pac_hi_idx - 1] - cdf[pac_lo_idx]
+    return hist, cdf, pac_area
+
+
+def bin_edges(bins: int = 20) -> np.ndarray:
+    """Histogram bin edges over [0, 1], as ``np.histogram`` returns them."""
+    return np.linspace(0.0, 1.0, bins + 1)
+
+
+def area_under_cdf(cdf: np.ndarray) -> np.ndarray:
+    """Monti's A(K): area under the binned consensus CDF, sum(cdf) * dbin."""
+    cdf = np.asarray(cdf)
+    return np.sum(cdf, axis=-1) / cdf.shape[-1]
+
+
+def delta_k(areas: np.ndarray) -> np.ndarray:
+    """Monti's Delta(K): A(K_1), then (A(K_m) - A(K_m-1)) / A(K_m-1)."""
+    areas = np.asarray(areas, dtype=np.float64)
+    out = np.empty_like(areas)
+    if areas.size == 0:
+        return out
+    out[0] = areas[0]
+    prev = np.maximum(areas[:-1], 1e-12)
+    out[1:] = (areas[1:] - areas[:-1]) / prev
+    return out
+
+
+def select_best_k(
+    mode: str,
+    k_values,
+    pac_areas,
+    delta_k_gains=None,
+    delta_k_threshold: float = 0.05,
+) -> int:
+    """Best K by ``'PAC'`` (argmin, near-ties to the largest K) or
+    ``'delta_k'`` (the largest K whose gain still exceeds the threshold)."""
+    ks = list(k_values)
+    if mode == "delta_k":
+        if delta_k_gains is None:
+            raise ValueError("mode='delta_k' needs delta_k_gains")
+        gains = np.maximum(np.asarray(delta_k_gains, np.float64), 0.0)
+        chosen = ks[0]
+        for i in range(1, len(ks)):
+            if gains[i] > delta_k_threshold:
+                chosen = ks[i]
+        return int(chosen)
+    if mode != "PAC":
+        raise ValueError(
+            f"consensus_matrix_analysis={mode!r} not supported "
+            "(choose 'PAC' or 'delta_k')"
+        )
+    pac = np.asarray(pac_areas, np.float64)
+    near_min = pac <= pac.min() + 1e-3
+    return int(max(k for k, hit in zip(ks, near_min) if hit))

@@ -1,0 +1,185 @@
+"""Where the time of a sweep goes on the GPU: stages, kernels, idle share.
+
+    python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8]
+
+Runs the headline configuration of ``chip_smoke.py`` (make_blobs N=5000
+d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
+after a warm-up:
+
+1. over ``--ks``, plain, for the wall clock and resamples/s;
+2. over ``--ks``, with each stage of the sweep wrapped, from here, in a
+   timer that synchronises the device before and after (the library
+   carries no instrumentation), for the wall seconds of every stage
+   (inclusive: ``cluster`` holds its ``cluster/*`` parts);
+3. for the single K ``--profile-k``, plain and then under
+   ``torch.profiler``, for the device time of every kernel and the
+   device idle share, 1 - (summed kernel time) / (plain wall clock): the
+   profiler slows the host, not the kernels.  One K keeps the trace
+   small, because reducing it on the host (``key_averages``) takes far
+   longer than the run it traces.
+
+Prints the card's name and power limit, then one JSON line after parts 1
+and 2 and one after part 3, so a cut run keeps what it measured.  Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import functools
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.data import make_blobs
+from consensus_clustering_tpu_torch.models import kmeans
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.parallel import sweep
+from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+# (module, attribute, stage name): the sweep's stages.
+_STAGES = (
+    (sweep, "resample_indices", "plan"),
+    (sweep, "cosample_counts", "iij"),
+    (sweep, "fit_resample_lanes", "cluster"),
+    (kmeans, "_kmeanspp_init", "cluster/kmeans++"),
+    (kmeans, "lloyd_step", "cluster/lloyd_step"),
+    (kmeans, "_apply_update", "cluster/update"),
+    (kmeans, "masked_sqdist", "cluster/final_assign"),
+    (sweep, "coassociation_counts", "mij"),
+    (sweep, "consensus_matrix", "cij"),
+    (sweep, "consensus_hist_counts", "hist"),
+    (sweep, "cdf_pac_from_counts", "curves"),
+)
+
+
+def _kernel_class(name: str) -> str:
+    if name.startswith("lloyd_"):
+        return name.split("(")[0]
+    if name.startswith("hist_kernel"):
+        return "hist_kernel"
+    lowered = name.lower()
+    if "gemm" in lowered or "cutlass" in lowered or "xmma" in lowered:
+        return "cublas gemm"
+    return "other (elementwise, reductions, copies)"
+
+
+def _self_device_us(event) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(event, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def _timed_stages(km, config, x):
+    seconds = collections.defaultdict(float)
+    calls = collections.Counter()
+    originals = [(m, a, getattr(m, a)) for m, a, _ in _STAGES]
+
+    def timed(fn, name):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return wrapper
+
+    for module, attr, name in _STAGES:
+        setattr(module, attr, timed(getattr(module, attr), name))
+    try:
+        wall = run_sweep(km, config, x, 23)["timing"]["run_seconds"]
+    finally:
+        for module, attr, fn in originals:
+            setattr(module, attr, fn)
+    return wall, {n: {"calls": calls[n], "seconds": seconds[n]}
+                  for _, _, n in _STAGES}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ks", default=",".join(map(str, range(2, 21))))
+    parser.add_argument("--profile-k", type=int, default=8)
+    parser.add_argument("--h", type=int, default=500)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_sweep: no CUDA device is visible", file=sys.stderr)
+        return 2
+    ks = tuple(int(k) for k in args.ks.split(","))
+    x, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
+                      cluster_std=3.0, random_state=0)
+    x = x.astype(np.float32)
+    config = SweepConfig(
+        n_samples=5000, n_features=50, k_values=ks, n_iterations=args.h,
+        store_matrices=False, chunk_size=4, cluster_batch=16,
+    )
+    km = KMeans(n_init=3)
+    # Warm-up: build the kernels and let cuBLAS pick its algorithms.
+    run_sweep(km, SweepConfig(n_samples=5000, n_features=50, k_values=(2, 3),
+                              n_iterations=16, store_matrices=False,
+                              chunk_size=4), x, 23)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    plain = run_sweep(km, config, x, 23)["timing"]
+    timed_wall, stages = _timed_stages(km, config, x)
+    print(json.dumps({
+        "profile": "headline stages", "k_values": list(ks), "h": args.h,
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "run_seconds": plain["run_seconds"],
+        "resamples_per_second": plain["resamples_per_second"],
+        "launches": plain["kernel_launches"],
+        "timed_run_seconds": timed_wall,
+        "stage_seconds": stages,
+    }, default=float), flush=True)
+
+    one_k = dataclasses.replace(config, k_values=(args.profile_k,))
+    one_k_plain = run_sweep(km, one_k, x, 23)["timing"]["run_seconds"]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run_sweep(km, one_k, x, 23)
+    kernels = [e for e in prof.key_averages() if _self_device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    by_class = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        entry = by_class[_kernel_class(e.key)]
+        entry[0] += e.count
+        entry[1] += _self_device_us(e) / 1e6
+    busy_s = sum(v[1] for v in by_class.values())
+    print(json.dumps({
+        "profile": "one K under torch.profiler", "h": args.h,
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "profile_k": args.profile_k,
+        "profile_k_run_seconds": one_k_plain,
+        "profile_k_device_busy_seconds": busy_s,
+        "profile_k_device_idle_share": 1.0 - busy_s / one_k_plain,
+        "device_seconds_by_kernel_class": {
+            k: {"launches": v[0], "seconds": v[1]}
+            for k, v in sorted(by_class.items(), key=lambda kv: -kv[1][1])
+        },
+        "top_kernels": [
+            {"name": e.key[:80], "calls": e.count,
+             "device_s": _self_device_us(e) / 1e6}
+            for e in sorted(kernels, key=lambda e: -_self_device_us(e))
+            [:8]
+        ],
+    }, default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,191 @@
+"""What the port may import, where it runs, and what it refuses.
+
+- The package imports neither ``jax`` nor ``consensus_clustering_tpu``
+  (checked with ``ast`` and in a subprocess where both are poisoned).
+- ``fit`` without ``device`` raises when no GPU is visible.
+- Features not ported yet raise ``NotImplementedError``.
+- The kernel modules import on the CPU, and the build raises a clear error
+  without ``nvcc``.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import consensus_clustering_tpu_torch as port
+from consensus_clustering_tpu_torch import ConsensusClustering
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.convert import (
+    config_from_jax,
+    key_from_jax,
+    kmeans_from_jax,
+)
+from consensus_clustering_tpu_torch.ops import _build, hist, lloyd
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(port.__file__))
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name):
+    return name == "jax" or name.startswith("jax.") or (
+        name == "consensus_clustering_tpu"
+        or name.startswith("consensus_clustering_tpu.")
+    )
+
+
+def test_no_module_imports_jax_or_the_reference_package():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [(path, n) for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+_POISONED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["consensus_clustering_tpu"] = None
+import numpy as np
+from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+x, _ = make_blobs(n_samples=60, n_features=3, centers=2, random_state=0)
+cc = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                         device="cpu").fit(x)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print(cc.best_k_, sorted(cc.cdf_at_K_data))
+"""
+
+
+def test_port_runs_with_jax_poisoned():
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _POISONED], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("[2, 3]")
+
+
+def test_import_pins_full_f32_matmul():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disable=JL018 -- raises before any sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).normal(size=(20, 3))
+    cc = ConsensusClustering(K_range=(2, 3), n_iterations=4, random_state=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cc.fit(x)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(mesh=object()), dict(stream_h_block=16),
+     dict(accum_repr="packed"), dict(mode="estimate"),
+     dict(checkpoint_dir="ckpt"), dict(compute_consensus_labels=True),
+     dict(autotune=True), dict(progress_callback=print),
+     dict(plot_cdf=True)],
+)
+def test_unported_features_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ConsensusClustering(K_range=(2, 3), random_state=0, **kwargs)
+
+
+def test_sklearn_clusterer_raises():  # jaxlint: disable=JL018 -- raises before any sweep
+    from sklearn.cluster import KMeans as SkKMeans
+
+    cc = ConsensusClustering(clusterer=SkKMeans(), K_range=(2, 3),
+                             random_state=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        cc.fit(np.random.default_rng(0).normal(size=(20, 3)))
+
+
+def test_fit_rejects_bad_input():  # jaxlint: disable=JL018 -- raises before any sweep
+    x = np.ones((10, 2))
+    x[3, 1] = np.nan
+    with pytest.raises(ValueError, match="non-finite"):
+        ConsensusClustering(random_state=0, device="cpu").fit(x)
+    with pytest.raises(ValueError, match="zero variance"):
+        ConsensusClustering(random_state=0, device="cpu").fit(np.ones((10, 2)))
+    with pytest.raises(ValueError, match="random_state"):
+        ConsensusClustering(device="cpu").fit(np.eye(10))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LOADED", {})
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.load("hist")
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_sources_ship_with_the_package():
+    for name in ("hist", "lloyd"):
+        path = _build.library_path(name)
+        assert path.startswith(_build.BUILD_DIR)
+        assert os.path.isfile(os.path.join(_build.CSRC_DIR, f"{name}.cu"))
+    assert hist.launch_count >= 0 and lloyd.launch_count >= 0
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    before = (hist.launch_count, lloyd.launch_count)
+    hist.consensus_hist_counts(torch.rand(9, 9), 9, 0, 20)
+    lloyd.lloyd_step(torch.rand(1, 9, 2), torch.zeros(1, dtype=torch.int64),
+                     torch.rand(1, 3, 2), 3)
+    assert (hist.launch_count, lloyd.launch_count) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        hist.consensus_hist_counts_kernel(torch.rand(9, 9), 9, 0, 20)
+
+
+def test_lloyd_kernel_layout_limits():
+    assert lloyd.smem_bytes(50, 20) <= lloyd.MAX_SMEM_BYTES
+    assert lloyd.smem_bytes(500, 20) > lloyd.MAX_SMEM_BYTES
+
+
+def test_convert_from_reference_state():
+    import jax
+
+    from consensus_clustering_tpu.config import SweepConfig as JaxConfig
+    from consensus_clustering_tpu.models.kmeans import KMeans as JaxKMeans
+
+    ref = JaxConfig(n_samples=50, n_features=3, k_values=(2, 4),
+                    n_iterations=9, cluster_batch=4, split_init=True)
+    cfg = config_from_jax(dataclasses.asdict(ref))
+    assert isinstance(cfg, SweepConfig)
+    assert (cfg.n_sub, cfg.k_max, cfg.pac_idx) == (ref.n_sub, ref.k_max,
+                                                  ref.pac_idx)
+    assert cfg.cluster_batch == 4 and cfg.split_init
+    with pytest.raises(NotImplementedError):
+        config_from_jax(dataclasses.asdict(
+            JaxConfig(n_samples=50, n_features=3, accum_repr="packed")))
+    km = kmeans_from_jax(dataclasses.asdict(JaxKMeans(n_init=3, tol=1e-3)))
+    assert (km.n_init, km.max_iter, km.tol) == (3, 100, 1e-3)
+    key = key_from_jax(np.asarray(jax.random.key_data(
+        jax.random.PRNGKey(42))))
+    np.testing.assert_array_equal(key.numpy(), [0, 42])
