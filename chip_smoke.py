@@ -4,30 +4,44 @@
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
 
-1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
-              versions, and the seconds to build both kernels from csrc/
-              (one nvcc per source, started together);
-2. kernels  — each kernel against its plain PyTorch version on the card, at
-              the shapes the main path gives it and at a ragged shape, with
-              kernel, plain and bound times;
-3. headline — ``ConsensusClustering.fit`` on make_blobs N=5000 d=50, H=500,
-              K=2..20, KMeans(n_init=3), cluster_batch=16, chunk_size=4,
-              with the kernels' launch counts set to 0 just before: PAC
-              finite, in [0, 1], falling to its minimum at the data's 8
-              blobs;
-4. small    — the same fit on a small input on the card and on the CPU
-              (plain versions): Iij identical, PAC within 0.02 per K;
-5. corr     — corr.csv, K=2..14, H=30, seed 23: PAC inside the golden
-              bands of tests/fixtures/reference_goldens.json, iij.sum()
-              equal to the golden.
+1. env          — the card's name and power limit (nvidia-smi), torch/CUDA
+                  versions, and the seconds to build the four kernel
+                  sources from csrc/ (one nvcc per source, started
+                  together);
+2. kernels      — each kernel against its plain PyTorch version on the
+                  card, at the shapes the main paths give it (B1 also at
+                  the stream's first and last 256 x 5120 row tiles) and
+                  at a ragged shape, with kernel, plain and bound times;
+3. headline     — the dense ``ConsensusClustering.fit`` on make_blobs
+                  N=5000 d=50, H=500, K=2..20, KMeans(n_init=3),
+                  cluster_batch=16, chunk_size=4, with the kernels' launch
+                  counts set to 0 just before: PAC finite, in [0, 1],
+                  falling to its minimum at the data's 8 blobs;
+4. stream       — the same fit through the streaming engine,
+                  ``stream_h_block=100, accum_repr="packed",
+                  fuse_block="auto"``, counts set to 0 just before: fused
+                  on the card, every kernel launched, and per-K hist and
+                  PAC equal to the headline's bit for bit;
+5. small        — a small dense fit on the card and on the CPU (plain
+                  versions): Iij identical, PAC within 0.02 per K;
+6. stream_small — N=300, H=60, K=2..6, blocks of 16 on the card: streamed
+                  dense == monolithic dense, packed == dense, fused planes
+                  == unfused planes, bit for bit; card vs CPU Iij and
+                  co-sample planes identical, PAC within 0.02 per K;
+7. corr         — corr.csv, K=2..14, H=30, seed 23: PAC inside the golden
+                  bands of tests/fixtures/reference_goldens.json, iij.sum()
+                  equal to the golden.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
-that line; so does a machine without CUDA.  ``--phases env,kernels`` runs a
-subset (the default is all of them).
+that line; so does a machine without CUDA.  ``--phases env,kernels`` (or
+``--phases stream``) runs a subset (the default is all of them); the
+stream phase compares with the headline only when both run in one call,
+and otherwise says ``"not run"`` for that comparison.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -38,12 +52,20 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "headline", "small", "corr")
+PHASES = ("env", "kernels", "headline", "stream", "small", "stream_small",
+          "corr")
+KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores.
+# outside the tensor cores.  POPC: 16 results per clock per SM on compute
+# capability 9.0 (the CUDA programming guide's arithmetic-instruction
+# throughput table), 132 SMs, 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+POPC_PER_S = 16 * 132 * 1.98e9
+
+HEADLINE = dict(K_range=range(2, 21), n_iterations=500, random_state=23,
+                store_matrices=False, chunk_size=4, cluster_batch=16)
 
 FAILURES = []
 
@@ -84,10 +106,18 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def headline_data():
+    from consensus_clustering_tpu_torch import make_blobs
+
+    x, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
+                      cluster_std=3.0, random_state=0)
+    return x.astype(np.float32)
 
 
 # -- phase 1 -------------------------------------------------------------
@@ -99,7 +129,9 @@ def phase_env(torch):
     line = smi_line()
     print(line, flush=True)
     t0 = time.perf_counter()
-    reports = _build.build(["hist", "lloyd"])
+    from consensus_clustering_tpu_torch.parallel.sweep import KERNELS
+
+    reports = _build.build(KERNELS)
     build_s = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in text.splitlines() if "Used" in ln]
@@ -109,7 +141,8 @@ def phase_env(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "build_seconds": build_s, "ptxas": ptxas})
+          "built": list(KERNELS), "build_seconds": build_s,
+          "ptxas": ptxas})
     check_matmul_precision(torch)
 
 
@@ -164,7 +197,16 @@ def phase_kernels(torch, results):
     n = 5000
     bins = 20
     cij = _cij_block(torch, n, seed=0)
-    cases = [("full", cij, n, 0), ("ragged", cij[1234:2011], 4990, 1234)]
+    # The stream's evaluation tiles: 256-row slices of a Cij over the
+    # 5120 padded columns, N = 5000.  The last tile's rows 5000-5119 and
+    # every tile's columns >= 5000 lie past N (random here, not zero) and
+    # must be dropped.
+    tile_r, n_pad2 = 256, 5120
+    cij_pad = _cij_block(torch, n_pad2, seed=1)
+    cases = [("full", cij, n, 0), ("ragged", cij[1234:2011], 4990, 1234),
+             ("stream tile 0", cij_pad[:tile_r], n, 0),
+             ("stream tile 19", cij_pad[n_pad2 - tile_r:], n,
+              n_pad2 - tile_r)]
     worst = 0
     for name, block, n_valid, off in cases:
         got = hist.consensus_hist_counts_kernel(block, n_valid, off, bins)
@@ -182,9 +224,18 @@ def phase_kernels(torch, results):
         cij, n, 0, bins), 20)
     p_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
         cij, n, 0, bins), 3)
+    tile = cij_pad[:tile_r]
+    t_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
+        tile, n, 0, bins), 50)
+    tp_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
+        tile, n, 0, bins), 5)
     pairs = n * (n - 1) // 2
     b_ms, b_by = bound_ms(pairs * 4 + (bins + 1) * 4 + bins * 4,
                           pairs * (3 + math.ceil(math.log2(bins))))
+    # Tile 0 holds the pairs i < j < N of its rows.
+    t_pairs = sum(n - 1 - i for i in range(tile_r))
+    tb_ms, tb_by = bound_ms(t_pairs * 4 + (bins + 1) * 4 + bins * 4,
+                            t_pairs * (3 + math.ceil(math.log2(bins))))
     results["hist"] = {
         "name": "hist", "route": "cuda",
         "source": "consensus_clustering_tpu_torch/csrc/hist.cu",
@@ -192,10 +243,15 @@ def phase_kernels(torch, results):
         "launches": None, "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [n, n],
+        "stream_tile": {"shape": [tile_r, n_pad2], "ms": t_ms,
+                        "plain_ms": tp_ms, "bound_ms": tb_ms,
+                        "bound_by": tb_by},
     }
     emit({"phase": "kernels", "kernel": "hist", "timing_shape": [n, n],
           "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-          "bound_by": b_by, "library_ms": None,
+          "bound_by": b_by, "stream_tile_shape": [tile_r, n_pad2],
+          "stream_tile_ms": t_ms, "stream_tile_plain_ms": tp_ms,
+          "stream_tile_bound_ms": tb_ms, "library_ms": None,
           "library_note": "no single PyTorch call computes it: torch.histc "
                           "bins by scaled floor, not by edge membership, "
                           "and takes no triangle mask"})
@@ -292,60 +348,330 @@ def phase_kernels(torch, results):
           "library_ms": None,
           "library_note": "no single PyTorch call computes a fused "
                           "assign + accumulate step"})
+    kernels_popcount(torch, results)
+    kernels_fused(torch, results)
 
 
-# -- phase 3 -------------------------------------------------------------
-
-
-def phase_headline(torch, results):
-    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
-    from consensus_clustering_tpu_torch.ops import hist, lloyd
-
-    x, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
-                      cluster_std=3.0, random_state=0)
-    x = x.astype(np.float32)
-    ks = list(range(2, 21))
-    cc = ConsensusClustering(
-        K_range=range(2, 21), n_iterations=500, random_state=23,
-        store_matrices=False, chunk_size=4, cluster_batch=16,
+def kernels_popcount(torch, results):
+    """B3 at the stream headline's evaluation tiles (Mij: 20 K-planes x 20
+    words, a 256-row tile sliced from the 5120 columns, as the engine
+    passes it; Iij: 20 words) and at the reference's ragged probe shape,
+    on random bit patterns including bit 31; counts must be equal."""
+    from consensus_clustering_tpu_torch.ops import popcount
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        popcount_accumulate,
+        unpack_bits,
     )
-    hist.launch_count = 0
-    lloyd.launch_count = 0
-    t0 = time.perf_counter()
-    cc.fit(x)
-    wall = time.perf_counter() - t0
-    launches = {"hist": hist.launch_count, "lloyd": lloyd.launch_count}
-    pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
-    m = cc.metrics_
-    emit({"phase": "headline", "nvidia_smi": smi_line(),
-          "config": "make_blobs N=5000 d=50 centers=8 std=3, H=500, "
-                    "K=2..20, KMeans(n_init=3), cluster_batch=16, "
-                    "chunk_size=4, seed 23",
-          "wall_seconds": wall, "run_seconds": m["run_seconds"],
-          "resamples_per_second": m["resamples_per_second"],
-          "peak_device_bytes": m["device_memory"]["peak_bytes_in_use"],
-          "launches": launches, "pac": pac.round(6).tolist(),
-          "best_k": cc.best_k_})
-    for name in ("hist", "lloyd"):
-        if name in results:
-            results[name]["launches"] = launches[name]
-    check(launches["hist"] == len(ks), f"hist launches {launches['hist']}")
-    check(launches["lloyd"] > 0, "the Lloyd kernel never launched")
-    check(m["kernel_launches"] == launches, "metrics_ launch counts differ")
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def words(n_words, n_cols):
+        return torch.randint(-2**31, 2**31 - 1, (n_words, n_cols),
+                             generator=g, device="cuda", dtype=torch.int32)
+
+    mij_cols, iij_cols, ragged = words(400, 5120), words(20, 5120), None
+    cases = [
+        ("mij tile", mij_cols[:, 1024:1280], mij_cols),
+        ("iij tile", iij_cols[:, 4864:5120], iij_cols),
+        ("ragged probe", words(13, 264), words(13, 300)),
+    ]
+    worst = 0
+    for name, rows, cols in cases:
+        got = popcount.packed_coassoc_counts_kernel(rows, cols)
+        ref = popcount_accumulate(rows, cols)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"popcount kernel != plain ({name})")
+        emit({"phase": "kernels", "kernel": "popcount", "case": name,
+              "rows": list(rows.shape), "cols": list(cols.shape),
+              "bit31_words": int((rows < 0).sum() + (cols < 0).sum()),
+              "max_abs_err": err})
+    rows, cols = cases[0][1], cases[0][2]
+    n_words, n_rows, n_cols = rows.shape[0], rows.shape[1], cols.shape[1]
+    k_ms = cuda_ms(torch, lambda: popcount.packed_coassoc_counts_kernel(
+        rows, cols), 50)
+    p_ms = cuda_ms(torch, lambda: popcount_accumulate(rows, cols), 3)
+
+    def dense_equiv():
+        a = unpack_bits(rows.T.contiguous(), n_words * 32).float()
+        b = unpack_bits(cols.T.contiguous(), n_words * 32).float()
+        return (a @ b.T).to(torch.int32)
+
+    d_ms = cuda_ms(torch, dense_equiv, 5)
+    check(bool(torch.equal(dense_equiv(),
+                           popcount_accumulate(rows, cols))),
+          "popcount dense equivalent != plain")
+    n_ops = n_words * n_rows * n_cols
+    b_ms, b_by = bound_ms(4 * (n_words * (n_rows + n_cols) + n_rows * n_cols),
+                          n_ops, POPC_PER_S)
+    results["popcount"] = {
+        "name": "popcount", "route": "cuda",
+        "source": "consensus_clustering_tpu_torch/csrc/popcount.cu",
+        "replaces": "consensus_clustering_tpu/ops/pallas_coassoc.py:66",
+        "launches": None, "max_abs_err": worst, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "dense_equiv_ms": d_ms,
+        "shape": [n_words, n_rows, n_cols],
+    }
+    emit({"phase": "kernels", "kernel": "popcount",
+          "timing_shape": [n_words, n_rows, n_cols], "kernel_ms": k_ms,
+          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "bound_rate": "POPC 16/clk/SM x 132 SMs x 1.98 GHz = "
+                        f"{POPC_PER_S:.4g}/s; HBM 3.35 TB/s",
+          "library_ms": None, "dense_equiv_ms": d_ms,
+          "library_note": "no PyTorch call computes a popcount product; "
+                          "dense_equiv_ms is the same counts through "
+                          "unpack_bits + a float32 one-hot matmul"})
+
+
+def kernels_fused(torch, results):
+    """B4 and the final-assignment kernel: at the stream headline's block
+    (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0)
+    and the reference's ragged probe (300 columns, 13 lanes, d 7, k_max 5,
+    2 words, row0 3).  On data quantised to 1/8 the planes equal the plain
+    version; on raw blobs they equal the card's unfused route
+    (assign_labels + pack_label_planes) on the same centroids."""
+    from consensus_clustering_tpu_torch import rng
+    from consensus_clustering_tpu_torch.ops import fused_block
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        pack_cosample_planes,
+        pack_label_planes,
+    )
+    from consensus_clustering_tpu_torch.ops.resample import resample_indices
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def block(x, n_cols, n_lanes, k_max, n_words, row0, seed):
+        n, d = x.shape
+        idx = resample_indices(rng.prng_key(seed, "cuda"), n, n_lanes,
+                               int(0.8 * n))
+        x_cols = torch.zeros((n_cols, d), device="cuda")
+        x_cols[:n] = x
+        cop = pack_cosample_planes(idx, n_cols, n_words=n_words, row0=row0)
+        pick = torch.randint(0, n, (n_lanes, k_max), generator=g,
+                             device="cuda")
+        return x_cols, idx, cop, x[pick]
+
+    def unfused(x_cols, idx, cents, k, cop, row0, n_words):
+        lanes = cents.shape[0]
+        labels, _ = fused_block.assign_labels(
+            x_cols[None], torch.zeros(lanes, dtype=torch.int64,
+                                      device="cuda"), cents, k)
+        gathered = torch.gather(labels, 1, idx)
+        return pack_label_planes(gathered, idx, cents.shape[1],
+                                 x_cols.shape[0], n_words=n_words, row0=row0)
+
+    x_head = torch.tensor(headline_data(), device="cuda")
+    x_rag = torch.randn((300, 7), generator=g, device="cuda") * 3
+    worst = 0
+    for shape, x, n_cols, lanes, k_max, n_words, row0, ks in (
+        ("headline", x_head, 5120, 100, 20, 4, 0, (20, 7)),
+        ("ragged probe", x_rag, 300, 13, 5, 2, 3, (4,)),
+    ):
+        for data in ("quantised", "raw"):
+            xs = torch.round(x * 8) / 8 if data == "quantised" else x
+            x_cols, idx, cop, cents = block(xs, n_cols, lanes, k_max,
+                                            n_words, row0, lanes)
+            for k in ks:
+                got = fused_block.fused_assign_pack_kernel(
+                    x_cols, cents, k, cop, row0, n_words)
+                plain = fused_block.fused_planes_plain(
+                    x_cols, cents, k, cop, row0, n_words)
+                route = unfused(x_cols, idx, cents, k, cop, row0, n_words)
+                torch.cuda.synchronize()
+                eq_plain = bool(torch.equal(got, plain))
+                eq_route = bool(torch.equal(got, route))
+                worst = max(worst, int((got != plain).sum()))
+                if data == "quantised":
+                    check(eq_plain, f"B4 != plain ({shape}, k={k})")
+                check(eq_route, f"B4 != unfused route ({shape}, {data}, "
+                                f"k={k})")
+                emit({"phase": "kernels", "kernel": "fused_block",
+                      "case": f"{shape} {data}", "k": k,
+                      "x_cols": list(x_cols.shape), "lanes": lanes,
+                      "k_max": k_max, "n_words": n_words, "row0": row0,
+                      "equal_plain": eq_plain,
+                      "equal_unfused_route": eq_route,
+                      "nonzero_words": int((got != 0).sum())})
+    # Timing at the headline block, raw data, k = 20.
+    x_cols, idx, cop, cents = block(x_head, 5120, 100, 20, 4, 0, 100)
+    k_ms = cuda_ms(torch, lambda: fused_block.fused_assign_pack_kernel(
+        x_cols, cents, 20, cop, 0, 4), 20)
+    p_ms = cuda_ms(torch, lambda: fused_block.fused_planes_plain(
+        x_cols, cents, 20, cop, 0, 4), 3)
+    n_cols, d = x_cols.shape
+    sampled = int(idx.numel())  # the co-sampled (lane, column) pairs
+    n_ops = sampled * 20 * (2 * d + 3) + n_cols * 2 * d + 100 * 20 * 2 * d
+    n_bytes = 4 * (n_cols * d + 100 * 20 * d + 4 * n_cols + 20 * 4 * n_cols)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    results["fused_block"] = {
+        "name": "fused_block", "route": "cuda",
+        "source": "consensus_clustering_tpu_torch/csrc/fused_block.cu",
+        "replaces": "consensus_clustering_tpu/ops/pallas_fused_block.py:69",
+        "launches": None, "max_abs_err": worst, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": [n_cols, d, 100, 20, 4],
+    }
+    emit({"phase": "kernels", "kernel": "fused_block",
+          "timing_shape": [n_cols, d, 100, 20, 4], "kernel_ms": k_ms,
+          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": None,
+          "library_note": "no PyTorch call computes a nearest-centroid "
+                          "assignment packed into bit-planes"})
+
+    # The final assignment alone, at the headline's lane batch: 16
+    # resamples x n_init 3 of 4000 x 50 rows, k_max 20.
+    idx16 = resample_indices(rng.prng_key(23, "cuda"), 5000, 16, 4000)
+    xs = x_head[idx16]
+    src = torch.arange(16, device="cuda").repeat_interleave(3)
+    cents = xs[src[:, None], torch.randint(0, 4000, (48, 20), generator=g,
+                                           device="cuda")]
+    got = fused_block.assign_labels_kernel(xs, src, cents, 20)
+    ref = fused_block.assign_labels_plain(xs, src, cents, 20)
+    torch.cuda.synchronize()
+    lab_eq = bool(torch.equal(got[0], ref[0]))
+    dmin_eq = bool(torch.equal(got[1], ref[1]))
+    check(lab_eq and dmin_eq, "assign kernel != plain (headline lanes)")
+    a_ms = cuda_ms(torch, lambda: fused_block.assign_labels_kernel(
+        xs, src, cents, 20), 20)
+    ap_ms = cuda_ms(torch, lambda: fused_block.assign_labels_plain(
+        xs, src, cents, 20), 3)
+    lanes, rows, d = 48, 4000, 50
+    b_ms, b_by = bound_ms(
+        4 * (16 * rows * d + lanes * 20 * d + lanes + 2 * lanes * rows),
+        lanes * rows * (20 * (2 * d + 3) + 2 * d))
+    results["assign"] = {
+        "name": "assign", "route": "cuda",
+        "source": "consensus_clustering_tpu_torch/csrc/fused_block.cu",
+        "replaces": "consensus_clustering_tpu/models/kmeans.py:348 (the "
+                    "final assignment, an XLA GEMM; no Pallas kernel)",
+        "launches": None,
+        "max_abs_err": float((got[1] - ref[1]).abs().max()),
+        "ms": a_ms, "plain_ms": ap_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": [lanes, rows, d, 20],
+    }
+    emit({"phase": "kernels", "kernel": "assign",
+          "timing_shape": [lanes, rows, d, 20], "labels_equal": lab_eq,
+          "dmin_equal": dmin_eq, "kernel_ms": a_ms, "plain_ms": ap_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "library_note": "no single PyTorch call returns nearest labels "
+                          "and distances"})
+
+
+# -- phases 3 and 4 -----------------------------------------------------
+
+
+def _pac_checks(name, ks, pac):
     check(bool(np.isfinite(pac).all() and (pac >= 0).all()
-               and (pac <= 1).all()), f"PAC not finite in [0, 1]: {pac}")
+               and (pac <= 1).all()), f"{name}: PAC not finite in [0, 1]: "
+                                      f"{pac}")
     # The data hold 8 blobs: the curve falls (within 0.02) from K=2 to its
     # elbow at K=8, which sits at the minimum (+0.02).  Past it PAC rises a
     # little, as splitting true blobs makes co-clustering ambiguous.
     elbow = ks.index(8)
     head = pac[:elbow + 1]
     check(all(a >= b - 0.02 for a, b in zip(head, head[1:])),
-          f"PAC rises before the elbow at K=8: {head}")
+          f"{name}: PAC rises before the elbow at K=8: {head}")
     check(pac[elbow] <= pac.min() + 0.02,
-          f"PAC(K=8)={pac[elbow]} is not at the minimum {pac.min()}")
+          f"{name}: PAC(K=8)={pac[elbow]} is not at the minimum {pac.min()}")
 
 
-# -- phase 4 -------------------------------------------------------------
+def _drive(torch, phase, results, **kwargs):
+    """Fit the headline data with the kernels' launch counts set to 0 just
+    before; emit the run and return (fit, launches)."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    x = headline_data()
+    cc = ConsensusClustering(**HEADLINE, **kwargs)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cc.fit(x)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ks = list(HEADLINE["K_range"])
+    pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
+    m = cc.metrics_
+    emit({"phase": phase, "nvidia_smi": smi_line(),
+          "config": "make_blobs N=5000 d=50 centers=8 std=3, H=500, "
+                    "K=2..20, KMeans(n_init=3), cluster_batch=16, "
+                    "chunk_size=4, seed 23" + "".join(
+                        f", {k}={v!r}" for k, v in kwargs.items()),
+          "wall_seconds": wall, "run_seconds": m["run_seconds"],
+          "resamples_per_second": m["resamples_per_second"],
+          "peak_device_bytes": m["device_memory"]["peak_bytes_in_use"],
+          "launches": launches, "strategy": m.get("timing", {}),
+          "pac": pac.tolist(), "best_k": cc.best_k_})
+    check(m["kernel_launches"] == launches,
+          f"{phase}: metrics_ launch counts differ")
+    _pac_checks(phase, ks, pac)
+    for name, n in launches.items():
+        if name in results:
+            results[name].setdefault("launches_by_phase", {})[phase] = n
+    return cc, launches
+
+
+def phase_headline(torch, results):
+    cc, launches = _drive(torch, "headline", results)
+    results["headline_fit"] = cc
+    for name in ("hist", "lloyd", "assign"):
+        if name in results:
+            results[name]["launches"] = launches[name]
+    check(launches["hist"] == len(HEADLINE["K_range"]),
+          f"hist launches {launches['hist']}")
+    check(launches["lloyd"] > 0, "the Lloyd kernel never launched")
+    check(launches["assign"] > 0, "the assignment kernel never launched")
+
+
+def phase_stream(torch, results):
+    cc, launches = _drive(torch, "stream", results, stream_h_block=100,
+                          accum_repr="packed", fuse_block="auto")
+    ks = list(HEADLINE["K_range"])
+    n_blocks, n_tiles = 5, 20
+    # Per block and row tile: one Iij tile, then each K's Mij tile.
+    expected = {"fused_block": len(ks) * n_blocks,
+                "hist": n_tiles * len(ks) * n_blocks,
+                "popcount": n_tiles * (len(ks) + 1) * n_blocks}
+    s = cc.metrics_["streaming"]
+    emit({"phase": "stream", "pac_trajectory": s["pac_trajectory"],
+          "h_effective": s["h_effective"], "n_blocks_run": s["n_blocks_run"],
+          "expected_launches": expected})
+    for name in ("popcount", "fused_block"):
+        if name in results:
+            results[name]["launches"] = launches[name]
+    check(cc.metrics_["timing"] == {"packed_kernel": "cuda",
+                                    "fuse_block": "fused",
+                                    "fused_kernel": "cuda"},
+          f"stream: strategy {cc.metrics_['timing']}")
+    check(all(n > 0 for n in launches.values()),
+          f"stream: a kernel of the path never launched: {launches}")
+    for name, n in expected.items():
+        check(launches[name] == n,
+              f"stream: {name} launches {launches[name]}, expected {n}")
+    check(s["h_effective"] == 500 and s["n_blocks_run"] == n_blocks,
+          f"stream: {s['n_blocks_run']} blocks, h_effective "
+          f"{s['h_effective']}")
+    dense = results.get("headline_fit")
+    if dense is None:
+        # Only a subset run (--phases without headline) gets here.
+        emit({"phase": "stream", "equal_to_headline_per_k":
+              "not run: the headline phase did not run in this call"})
+        return
+    common = [k for k in ks if k in dense.cdf_at_K_data]
+    same = [bool(np.array_equal(cc.cdf_at_K_data[k]["hist"],
+                                dense.cdf_at_K_data[k]["hist"]))
+            and cc.cdf_at_K_data[k]["pac_area"]
+            == dense.cdf_at_K_data[k]["pac_area"] for k in common]
+    emit({"phase": "stream", "equal_to_headline_per_k": same})
+    check(all(same), "stream: per-K hist/PAC differ from the dense headline "
+                     f"at K={[k for k, e in zip(common, same) if not e]}")
+
+
+# -- phase 5 -------------------------------------------------------------
 
 
 def phase_small(torch):
@@ -371,7 +697,68 @@ def phase_small(torch):
     check(pac_gap <= 0.02, f"small: PAC gap {pac_gap} > 0.02")
 
 
-# -- phase 5 -------------------------------------------------------------
+# -- phase 6 -------------------------------------------------------------
+
+
+def phase_stream_small(torch):
+    from consensus_clustering_tpu_torch import make_blobs
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+        run_streaming_sweep,
+    )
+    from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+    x, _ = make_blobs(n_samples=300, n_features=8, centers=4,
+                      cluster_std=2.0, random_state=5)
+    x = x.astype(np.float32)
+    base = SweepConfig(n_samples=300, n_features=8, k_values=(2, 3, 4, 5, 6),
+                       n_iterations=60, store_matrices=True)
+    km = KMeans(n_init=2)
+    mono = run_sweep(km, base, x, 7, device="cuda")
+    stream = {}
+    for repr_ in ("dense", "packed"):
+        cfg = dataclasses.replace(base, stream_h_block=16, accum_repr=repr_)
+        stream[repr_] = run_streaming_sweep(km, cfg, x, 7, device="cuda")
+    keys = ("mij", "iij", "cij", "hist", "cdf", "pac_area")
+    dense_eq = {k: bool(np.array_equal(stream["dense"][k], mono[k]))
+                for k in keys}
+    packed_eq = {k: bool(np.array_equal(stream["packed"][k], mono[k]))
+                 for k in keys}
+    captured = {}
+    for fuse in ("on", "off", "cpu"):
+        cfg = dataclasses.replace(base, stream_h_block=16,
+                                  accum_repr="packed", store_matrices=False,
+                                  fuse_block="off" if fuse == "off" else "on")
+        eng = StreamingSweep(km, cfg, device="cpu" if fuse == "cpu" else
+                             "cuda")
+        captured[fuse] = eng.run(x, 7, 60, capture_state=True)
+    planes_eq = bool(np.array_equal(captured["on"]["final_state"]["planes"],
+                                    captured["off"]["final_state"]["planes"]))
+    cop_eq = bool(np.array_equal(captured["on"]["final_state"]["coplanes"],
+                                 captured["cpu"]["final_state"]["coplanes"]))
+    pac_gap = float(np.abs(captured["on"]["pac_area"]
+                           - captured["cpu"]["pac_area"]).max())
+    cpu_mono = run_sweep(km, base, x, 7, device="cpu")
+    iij_eq = bool(np.array_equal(cpu_mono["iij"], mono["iij"]))
+    emit({"phase": "stream_small", "streamed_dense_equals_monolithic":
+          dense_eq, "packed_equals_dense": packed_eq,
+          "fused_planes_equal_unfused": planes_eq,
+          "card_cpu_iij_equal": iij_eq, "card_cpu_coplanes_equal": cop_eq,
+          "card_cpu_max_pac_gap": pac_gap,
+          "launches": stream["packed"]["timing"]["kernel_launches"]})
+    check(all(dense_eq.values()),
+          f"stream_small: streamed dense != monolithic: {dense_eq}")
+    check(all(packed_eq.values()),
+          f"stream_small: packed != dense: {packed_eq}")
+    check(planes_eq, "stream_small: fused planes != unfused planes")
+    check(iij_eq and cop_eq, "stream_small: Iij or coplanes differ between "
+                             "the card and the CPU")
+    check(pac_gap <= 0.02, f"stream_small: card/CPU PAC gap {pac_gap}")
+
+
+# -- phase 7 -------------------------------------------------------------
 
 
 def phase_corr(torch):
@@ -423,15 +810,19 @@ def main(argv=None):
         phase_kernels(torch, results)
     if "headline" in phases:
         phase_headline(torch, results)
+    if "stream" in phases:
+        phase_stream(torch, results)
     if "small" in phases:
         phase_small(torch)
+    if "stream_small" in phases:
+        phase_stream_small(torch)
     if "corr" in phases:
         phase_corr(torch)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)
         return 1
-    emit({"kernels": [results[k] for k in ("hist", "lloyd") if k in results]})
+    emit({"kernels": [results[k] for k in KERNEL_NAMES if k in results]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

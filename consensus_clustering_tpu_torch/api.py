@@ -1,16 +1,21 @@
 """The sklearn-shaped API: ``ConsensusClustering(...).fit(X)``.
 
-The port of the reference package's ``api.py`` for its dense, single-device
-path: the same constructor arguments for what this path does, the same
-``cdf_at_K_data`` result schema (``consensus_labels, hist, cdf, bin_edges,
-pac_area, mij, iij, cij`` per K), and ``areas_``, ``delta_k_``, ``best_k_``
-and ``metrics_``.  ``fit`` runs on ``cuda`` unless ``device`` says
-otherwise, and raises without a GPU when no device is given.
+The port of the reference package's ``api.py`` for its single-device
+paths: the monolithic sweep and, with ``stream_h_block``, the streaming
+H-block engine, each dense or packed (``accum_repr``); the same constructor
+arguments for what these paths do, the same ``cdf_at_K_data`` result schema
+(``consensus_labels, hist, cdf, bin_edges, pac_area, mij, iij, cij`` per
+K), and ``areas_``, ``delta_k_``, ``best_k_`` and ``metrics_`` (with
+``streaming`` for a streamed fit).  ``fit`` runs on ``cuda`` unless
+``device`` says otherwise, and raises without a GPU when no device is
+given.
 
 Features of the reference package that this package does not have yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-Unlike the reference, ``plot_cdf`` defaults to False: plotting is not
-ported.
+raise ``NotImplementedError`` naming the ROADMAP item that ports them:
+host/sklearn clusterers and consensus labels (A8), ``mode`` other than
+``exact`` (A9), ``autotune`` (A12), ``mesh`` (A13), plotting (A15), and
+``checkpoint_dir``, ``progress_callback`` and ``integrity_check_every``
+(A16).  Unlike the reference, ``plot_cdf`` defaults to False.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.config import (
+    SweepConfig,
+    not_ported,
+    validate_accum_repr,
+    validate_fuse_block,
+)
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
 from consensus_clustering_tpu_torch.ops.analysis import (
     area_under_cdf,
@@ -34,13 +44,6 @@ logger = logging.getLogger(__name__)
 
 _DEFAULT_CLUSTERER_OPTIONS = {"n_init": 3}
 _DELTA_K_THRESHOLD = 0.05
-
-
-def _not_ported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to consensus_clustering_tpu_torch yet "
-        f"(ROADMAP.md queue A, item {item}); use consensus_clustering_tpu"
-    )
 
 
 class ConsensusClustering:
@@ -63,7 +66,24 @@ class ConsensusClustering:
         Torch device; None means ``cuda`` (raises without a GPU).
     store_matrices : bool or 'auto', keyword-only
         Keep per-K ``mij``/``cij`` and ``iij``; 'auto' keeps them while the
-        stacked matrices stay under ~2 GB.
+        stacked matrices stay under ~2 GB, and never under ``adaptive_tol``.
+    stream_h_block : int, keyword-only, optional
+        Run the streaming engine over blocks of this many resamples (see
+        :mod:`.parallel.streaming`); None runs the monolithic sweep.  The
+        full-H result is the same bit for bit.
+    accum_repr : {'dense', 'packed'}, keyword-only
+        int32 (N, N) counts, or bit-planes counted by the popcount kernel
+        (the same counts; with streaming, 1/32 the state).
+    fuse_block : {'auto', 'on', 'off'}, keyword-only
+        Packed streaming only: fuse the final assignment with the packing.
+    adaptive_tol, adaptive_patience, adaptive_min_h : keyword-only
+        With ``stream_h_block``: stop once every K's PAC moved less than
+        ``adaptive_tol`` for ``adaptive_patience`` blocks, after
+        ``adaptive_min_h`` resamples; ``metrics_['streaming']`` reports
+        ``h_effective``.
+    use_packed_kernel : None or True, keyword-only
+        Accepted for compatibility: the popcount kernel always serves the
+        card (False raises).
     parity_zeros, bins, chunk_size, cluster_batch, split_init,
     reseed_clusterer_per_resample, delta_k_threshold : keyword-only,
         as the reference (see :class:`~.config.SweepConfig`).
@@ -101,29 +121,35 @@ class ConsensusClustering:
         mesh=None,
         stream_h_block: Optional[int] = None,
         accum_repr: str = "dense",
+        use_packed_kernel: Optional[bool] = None,
+        fuse_block: str = "auto",
+        adaptive_tol: Optional[float] = None,
+        adaptive_patience: int = 2,
+        adaptive_min_h: int = 0,
+        integrity_check_every: int = 0,
         mode: str = "exact",
         checkpoint_dir: Optional[str] = None,
         autotune: bool = False,
         progress_callback=None,
     ):
         if plot_cdf:
-            raise _not_ported("plot_cdf=True (plotting)", "A15")
+            raise not_ported("plot_cdf=True (plotting)", "A15")
         if compute_consensus_labels:
-            raise _not_ported("compute_consensus_labels", "A8")
+            raise not_ported("compute_consensus_labels", "A8")
         if mesh is not None:
-            raise _not_ported("mesh (multi-device sweeps)", "A13")
-        if stream_h_block is not None:
-            raise _not_ported("stream_h_block (the streaming engine)", "A5")
-        if accum_repr != "dense":
-            raise _not_ported(f"accum_repr={accum_repr!r}", "A6")
+            raise not_ported("mesh (multi-device sweeps)", "A13")
         if mode != "exact":
-            raise _not_ported(f"mode={mode!r} (the pair estimator)", "A9")
+            raise not_ported(f"mode={mode!r} (the pair estimator)", "A9")
         if checkpoint_dir is not None:
-            raise _not_ported("checkpoint_dir (per-K resume)", "A5")
+            raise not_ported("checkpoint_dir (per-K resume)", "A16")
+        if integrity_check_every:
+            raise not_ported(
+                "integrity_check_every > 0 (the accumulator sentinel)", "A16"
+            )
         if autotune:
-            raise _not_ported("autotune", "A12")
+            raise not_ported("autotune", "A12")
         if progress_callback is not None:
-            raise _not_ported("progress_callback", "A5")
+            raise not_ported("progress_callback", "A16")
         if consensus_matrix_analysis not in ("PAC", "delta_k"):
             raise ValueError(
                 f"consensus_matrix_analysis={consensus_matrix_analysis!r} "
@@ -159,11 +185,18 @@ class ConsensusClustering:
         self.reseed_clusterer_per_resample = reseed_clusterer_per_resample
         self.compute_dtype = compute_dtype
         self.delta_k_threshold = float(delta_k_threshold)
+        self.stream_h_block = stream_h_block
+        self.accum_repr = validate_accum_repr(accum_repr)
+        self.use_packed_kernel = use_packed_kernel
+        self.fuse_block = validate_fuse_block(fuse_block)
+        self.adaptive_tol = adaptive_tol
+        self.adaptive_patience = adaptive_patience
+        self.adaptive_min_h = adaptive_min_h
 
     def _resolve_clusterer(self):
         c = KMeans() if self.clusterer is None else self.clusterer
         if hasattr(c, "get_params") or not hasattr(c, "fit_predict"):
-            raise _not_ported(
+            raise not_ported(
                 f"clusterer {type(c).__name__} (host/sklearn clusterers)",
                 "A8",
             )
@@ -189,6 +222,10 @@ class ConsensusClustering:
 
     def _resolve_store_matrices(self, n: int) -> bool:
         if self.store_matrices == "auto":
+            if self.adaptive_tol is not None:
+                # Adaptive streaming is curves-only; an explicit True still
+                # reaches SweepConfig's ValueError.
+                return False
             approx_bytes = 2 * len(tuple(self.K_range)) * n * n * 4
             return approx_bytes < 2 * 2**30
         return bool(self.store_matrices)
@@ -226,11 +263,24 @@ class ConsensusClustering:
             cluster_batch=self.cluster_batch,
             split_init=bool(self.split_init),
             reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
+            stream_h_block=self.stream_h_block,
+            adaptive_tol=self.adaptive_tol,
+            adaptive_patience=self.adaptive_patience,
+            adaptive_min_h=self.adaptive_min_h,
+            accum_repr=self.accum_repr,
+            use_packed_kernel=self.use_packed_kernel,
+            fuse_block=self.fuse_block,
             dtype=self.compute_dtype,
         )
-        from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
-
-        out = run_sweep(
+        if config.stream_h_block is not None:
+            from consensus_clustering_tpu_torch.parallel.streaming import (
+                run_streaming_sweep as run,
+            )
+        else:
+            from consensus_clustering_tpu_torch.parallel.sweep import (
+                run_sweep as run,
+            )
+        out = run(
             self._resolve_clusterer(), config, X, self.random_state,
             device=self.device,
         )
@@ -280,3 +330,12 @@ class ConsensusClustering:
         }
         if timing["device_memory"]:
             self.metrics_["device_memory"] = timing["device_memory"]
+        strategy = {
+            key: timing[key]
+            for key in ("packed_kernel", "fuse_block", "fused_kernel")
+            if key in timing
+        }
+        if strategy:
+            self.metrics_["timing"] = strategy
+        if "streaming" in out:
+            self.metrics_["streaming"] = out["streaming"]

@@ -1,8 +1,9 @@
-"""Static sweep configuration for the dense, single-device sweep.
+"""Static sweep configuration for the single-device sweeps.
 
-The subset of the reference package's ``SweepConfig`` that the dense
-``ConsensusClustering.fit`` path reads.  Mesh, streaming, packed and
-estimator fields belong to engines this package does not have yet.
+The subset of the reference package's ``SweepConfig`` that the monolithic
+and streaming ``ConsensusClustering.fit`` paths read, with the reference's
+validation.  Mesh and estimator fields belong to engines this package does
+not have yet.
 """
 
 from __future__ import annotations
@@ -11,6 +12,50 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+#: Exact-mode accumulator representations: int32 (N, N) counts, or
+#: resamples packed 32 to a word as bit-planes (:mod:`.ops.bitpack`).
+ACCUM_REPRS = ("dense", "packed")
+
+#: Fused-block modes of the packed streaming step: ``auto`` fuses when the
+#: clusterer declares ``supports_fused_assign`` and the dtype is float32,
+#: ``on`` requires that, ``off`` keeps the label path.  A caller's choice,
+#: never a fallback.
+FUSE_BLOCK_MODES = ("auto", "on", "off")
+
+
+def validate_accum_repr(accum_repr: str) -> str:
+    """``accum_repr`` if it is one of :data:`ACCUM_REPRS`, else ValueError."""
+    if accum_repr not in ACCUM_REPRS:
+        raise ValueError(
+            f"accum_repr must be one of {list(ACCUM_REPRS)}, got "
+            f"{accum_repr!r}"
+        )
+    return accum_repr
+
+
+def validate_fuse_block(fuse_block: str) -> str:
+    """``fuse_block`` if it is one of :data:`FUSE_BLOCK_MODES`, else
+    ValueError."""
+    if fuse_block not in FUSE_BLOCK_MODES:
+        raise ValueError(
+            f"fuse_block must be one of {list(FUSE_BLOCK_MODES)}, got "
+            f"{fuse_block!r}"
+        )
+    return fuse_block
+
+
+def not_ported(feature: str, item: str) -> NotImplementedError:
+    """The error for a reference feature this package does not have yet,
+    naming the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{feature} is not ported to consensus_clustering_tpu_torch yet "
+        f"(ROADMAP.md queue A, item {item}); use consensus_clustering_tpu"
+    )
+
+
+def _is_int(value) -> bool:
+    return isinstance(value, (int, np.integer)) and not isinstance(value, bool)
 
 
 def subsample_size(n_samples: int, subsampling: float) -> int:
@@ -52,6 +97,23 @@ class SweepConfig:
         in one batch and group only the Lloyd loop (identical labels).
       reseed_clusterer_per_resample: give each resample its own clusterer
         key (False: every resample re-seeds identically, as the reference).
+      stream_h_block: resamples per block of the streaming engine
+        (:mod:`.parallel.streaming`); None runs the monolithic sweep.  The
+        full-H streamed result equals the monolithic one bit for bit.
+      adaptive_tol: stop the stream once every K's PAC moved less than
+        this for ``adaptive_patience`` consecutive blocks, after
+        ``adaptive_min_h`` resamples (None: always run the full H).  Needs
+        ``stream_h_block``; incompatible with ``store_matrices``.
+      adaptive_patience: consecutive quiet blocks before a stop.
+      adaptive_min_h: resamples before a stop may happen.
+      accum_repr: ``dense`` int32 (N, N) counts, or ``packed`` bit-planes
+        with the counts materialised in row tiles by the popcount kernel;
+        the counts are identical.
+      use_packed_kernel: None or True; the popcount kernel always serves
+        CUDA tensors (False, the plain version on the card, is refused).
+      fuse_block: ``auto``, ``on`` or ``off`` (:data:`FUSE_BLOCK_MODES`).
+      integrity_check_every: the accumulator sentinel's cadence; only 0
+        (off) is ported.
       dtype: "float32", or "float64" for the CPU parity path.
     """
 
@@ -68,21 +130,92 @@ class SweepConfig:
     cluster_batch: Optional[int] = None
     split_init: bool = False
     reseed_clusterer_per_resample: bool = False
+    stream_h_block: Optional[int] = None
+    adaptive_tol: Optional[float] = None
+    adaptive_patience: int = 2
+    adaptive_min_h: int = 0
+    accum_repr: str = "dense"
+    use_packed_kernel: Optional[bool] = None
+    fuse_block: str = "auto"
+    integrity_check_every: int = 0
     dtype: str = "float32"
 
     def __post_init__(self):
+        validate_accum_repr(self.accum_repr)
+        validate_fuse_block(self.fuse_block)
         if self.dtype not in ("float32", "float64"):
             raise ValueError(
                 f"dtype must be 'float32' or 'float64', got {self.dtype!r}"
             )
+        if self.use_packed_kernel is False:
+            raise ValueError(
+                "use_packed_kernel=False would run the popcount kernel's "
+                "plain version on the card, a fallback the port does not "
+                "take: CPU tensors get the plain version, CUDA tensors the "
+                "kernel (pass None)"
+            )
+        if self.fuse_block == "on" and self.accum_repr != "packed":
+            raise ValueError(
+                "fuse_block='on' requires accum_repr='packed': the fused "
+                "assign+pack kernel is a property of the packed block step"
+            )
+        if self.fuse_block == "on" and self.dtype != "float32":
+            raise ValueError(
+                "fuse_block='on' requires dtype='float32': the fused "
+                "kernel is float32-only"
+            )
         if self.cluster_batch is not None and (
-            isinstance(self.cluster_batch, bool)
-            or not isinstance(self.cluster_batch, (int, np.integer))
-            or self.cluster_batch < 1
+            not _is_int(self.cluster_batch) or self.cluster_batch < 1
         ):
             raise ValueError(
                 f"cluster_batch must be an int >= 1, got "
                 f"{self.cluster_batch!r}"
+            )
+        if self.stream_h_block is not None and (
+            not _is_int(self.stream_h_block) or self.stream_h_block < 1
+        ):
+            raise ValueError(
+                f"stream_h_block must be an int >= 1, got "
+                f"{self.stream_h_block!r}"
+            )
+        if self.adaptive_tol is not None:
+            if (not isinstance(self.adaptive_tol, (int, float))
+                    or isinstance(self.adaptive_tol, bool)
+                    or self.adaptive_tol < 0):
+                raise ValueError(
+                    f"adaptive_tol must be a number >= 0, got "
+                    f"{self.adaptive_tol!r}"
+                )
+            if self.stream_h_block is None:
+                raise ValueError(
+                    "adaptive_tol needs stream_h_block: early stopping is "
+                    "a property of the streaming driver loop"
+                )
+            if self.store_matrices:
+                raise ValueError(
+                    "adaptive_tol is incompatible with store_matrices: an "
+                    "early-stopped run's matrices would not match its "
+                    "h_effective; pass store_matrices=False"
+                )
+        if self.adaptive_patience < 1:
+            raise ValueError(
+                f"adaptive_patience must be >= 1, got "
+                f"{self.adaptive_patience}"
+            )
+        if self.adaptive_min_h < 0:
+            raise ValueError(
+                f"adaptive_min_h must be >= 0, got {self.adaptive_min_h}"
+            )
+        if not _is_int(self.integrity_check_every) or (
+            self.integrity_check_every < 0
+        ):
+            raise ValueError(
+                f"integrity_check_every must be an int >= 0 (0 = off), "
+                f"got {self.integrity_check_every!r}"
+            )
+        if self.integrity_check_every:
+            raise not_ported(
+                "integrity_check_every > 0 (the accumulator sentinel)", "A16"
             )
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")

@@ -17,18 +17,13 @@ from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
 
 # Reference SweepConfig fields with their defaults that this port can run
-# only at those defaults (each belongs to an engine not ported yet).
+# only at those defaults (each belongs to a feature not ported yet).
 _UNPORTED_DEFAULTS = {
     "k_interleave": False,
-    "stream_h_block": None,
-    "adaptive_tol": None,
-    "accum_repr": "dense",
 }
-# Fields that only choose an execution strategy, never a result.
-_STRATEGY_ONLY = {
-    "adaptive_patience", "adaptive_min_h", "integrity_check_every",
-    "use_packed_kernel", "fuse_block", "use_pallas",
-}
+# Fields that only choose an execution strategy, never a result, and have
+# no counterpart here (the port's kernels always serve the card).
+_STRATEGY_ONLY = {"use_packed_kernel", "use_pallas"}
 
 
 def config_from_jax(fields: Dict[str, Any]) -> SweepConfig:
@@ -67,3 +62,26 @@ def key_from_jax(key_data: np.ndarray, device=None) -> torch.Tensor:
     if data.shape[-1:] != (2,):
         raise ValueError(f"key data must end in a pair of words, got {data.shape}")
     return torch.as_tensor(data.astype(np.int64), device=device)
+
+
+def planes_from_jax(planes: np.ndarray, device=None) -> torch.Tensor:
+    """Reference uint32 bit-planes as the port's int32 tensor, the same 32
+    bits in every word."""
+    data = np.ascontiguousarray(np.asarray(planes))
+    if data.dtype != np.uint32:
+        raise ValueError(f"bit-planes must be uint32, got {data.dtype}")
+    return torch.as_tensor(data.view(np.int32).copy(), device=device)
+
+
+def state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A reference ``StreamingSweep`` state (or a run's ``final_state``) as
+    numpy arrays -> the port's state: uint32 planes become int32 bit
+    patterns, int32 dense counts carry over as they are."""
+    out = {}
+    for name, value in state.items():
+        data = np.asarray(value)
+        if data.dtype == np.uint32:
+            out[name] = planes_from_jax(data, device)
+        else:
+            out[name] = torch.as_tensor(data.astype(np.int32), device=device)
+    return out

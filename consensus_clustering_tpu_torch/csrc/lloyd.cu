@@ -22,8 +22,9 @@
 // design keeps everything a row tile needs in shared memory: the lane's
 // centroids and their norms, the tile of x (read from device memory once,
 // coalesced), and the tile's labels and min-distances.  One thread assigns
-// one row; distances use the reference's term order and a strict '<' scan
-// over ascending slots.
+// one row through the nearest-centroid routine of common.cuh (the
+// reference's term order, d summed in a fixed order, a strict '<' scan over
+// ascending slots), which the final assignment and fused_block.cu call too.
 //
 // Deterministic reduction: float atomics on the sums would make a run's
 // result depend on block order, and with it the labels of the next Lloyd
@@ -72,29 +73,14 @@ __global__ void lloyd_tile_kernel(const float* __restrict__ x,
   for (int i = threadIdx.x; i < rows * d; i += blockDim.x) xs[i] = xl[i];
   __syncthreads();
   for (int j = threadIdx.x; j < k_max; j += blockDim.x) {
-    float s = 0.0f;
-    for (int f = 0; f < d; ++f) s += c[j * d + f] * c[j * d + f];
-    csq[j] = s;
+    csq[j] = cc_sq_norm(c + j * d, d);
   }
   __syncthreads();
 
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const float* xr = xs + r * d;
-    float xsq = 0.0f;
-    for (int f = 0; f < d; ++f) xsq += xr[f] * xr[f];
-    float best = INFINITY;
-    int best_j = 0;
-    for (int j = 0; j < k; ++j) {
-      const float* cj = c + j * d;
-      float cross = 0.0f;
-      for (int f = 0; f < d; ++f) cross += xr[f] * cj[f];
-      const float dist = fmaxf(xsq - 2.0f * cross + csq[j], 0.0f);
-      if (dist < best) {
-        best = dist;
-        best_j = j;
-      }
-    }
-    lab[r] = best_j;
+    float best;
+    lab[r] = cc_nearest(xr, cc_sq_norm(xr, d), c, csq, d, k, &best);
     dmin[r] = best;
   }
   __syncthreads();

@@ -18,8 +18,14 @@ B * n_init lanes.
 - Empty clusters respawn on the strided-bucket far points.
 - The restart with the lowest inertia wins.
 
-k-means++ and the final assignment are ``torch.matmul`` products, as they
-are XLA GEMMs in the reference.  float64 is the CPU parity path only.
+k-means++ runs ``torch.matmul`` products, as they are XLA GEMMs in the
+reference.  The final assignment (labels, and the inertia that picks the
+restart) goes through :func:`..ops.fused_block.assign_labels`: on the card
+the kernel that shares its distance routine with the Lloyd kernel and the
+fused assign+pack kernel, on the CPU a per-row reduction over d that no
+other row can change.  So the fused block step's labels are the final
+assignment's own, bit for bit (``supports_fused_assign``).  float64 is the
+CPU parity path only.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from typing import Optional
 import torch
 
 from consensus_clustering_tpu_torch import rng
-from consensus_clustering_tpu_torch.ops.lloyd import lloyd_step, masked_sqdist
+from consensus_clustering_tpu_torch.ops.fused_block import assign_labels
+from consensus_clustering_tpu_torch.ops.lloyd import lloyd_step
 
 
 def _working_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +132,12 @@ class KMeans:
     max_iter: int = 100
     tol: float = 1e-4
 
+    # The fused block contract: fit's labels are exactly the nearest of
+    # the returned centroids under the shared distance routine (lowest
+    # slot on ties, slots >= k at +inf), so the streaming engine may
+    # recompute them inside the fused assign+pack kernel.
+    supports_fused_assign = True
+
     def _restart_keys(self, keys: torch.Tensor) -> torch.Tensor:
         if self.n_init == 1:
             return keys[:, None, :]
@@ -201,9 +214,15 @@ class KMeans:
             )
         tol_abs = self.tol * x.var(dim=1, correction=0).mean(dim=-1)
         centroids = self._lloyd(x, init_centroids.to(x.dtype), k, tol_abs)
-        dist = masked_sqdist(x[:, None], centroids, k)  # (B, R, n, k_max)
-        labels = torch.argmin(dist, dim=-1)
-        inertia = dist.min(dim=-1).values.sum(dim=-1)  # (B, R)
+        restarts = centroids.shape[1]
+        lane_src = torch.arange(bsz, device=x.device).repeat_interleave(
+            restarts
+        )
+        labels, d_min = assign_labels(
+            x, lane_src, centroids.reshape(bsz * restarts, k_max, d), k
+        )
+        labels = labels.reshape(bsz, restarts, n)
+        inertia = d_min.reshape(bsz, restarts, n).sum(dim=-1)
         best = torch.argmin(inertia, dim=-1)
         rows = torch.arange(bsz, device=x.device)
         return labels[rows, best], centroids[rows, best]

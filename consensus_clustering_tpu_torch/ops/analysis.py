@@ -23,16 +23,22 @@ __all__ = [
 ]
 
 
-def consensus_matrix(mij: torch.Tensor, iij: torch.Tensor) -> torch.Tensor:
+def consensus_matrix(
+    mij: torch.Tensor, iij: torch.Tensor, row_offset: int = 0
+) -> torch.Tensor:
     """``Cij = Mij / (Iij + 1e-6)`` in f32, diagonal 1.0.
 
     The regulariser is added as an f32 constant, so the add and the divide
     are each one correctly rounded f32 operation, as in the reference
-    package.
+    package.  ``row_offset`` is the global index of row 0 of a row block:
+    the diagonal is where the global row equals the column.
     """
     eps = torch.tensor(1e-6, dtype=torch.float32, device=mij.device)
     cij = mij.to(torch.float32) / (iij.to(torch.float32) + eps)
-    cij.fill_diagonal_(1.0)
+    n_rows, n_cols = cij.shape
+    rows = torch.arange(max(0, -row_offset), min(n_rows, n_cols - row_offset),
+                        device=cij.device)
+    cij[rows, rows + row_offset] = 1.0
     return cij
 
 

@@ -1,0 +1,320 @@
+"""The final nearest-centroid assignment, alone (:func:`assign_labels`) and
+fused with bit-plane packing (:func:`fused_assign_pack`): the CUDA kernels
+of ``csrc/fused_block.cu`` and their plain PyTorch versions.
+
+Every distance here is ``max((|x|^2 - 2 x.c) + |c|^2, 0)`` with each norm
+and dot product summed over d in ascending order, each product and sum
+rounded on its own: the routine of ``csrc/common.cuh`` that the Lloyd
+kernel, :func:`assign_labels` and :func:`fused_assign_pack` share on the
+card, and :func:`row_sqdist_plain` repeats op for op on the CPU.  A row's
+distances therefore do not depend on which other rows are computed beside
+it (a GEMM's blocking would make them depend on the row count), so the
+fused planes equal the label path's planes bit for bit, by construction, on
+both devices.  Slots >= k are +inf, and ties go to the lowest slot.
+
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernels, or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from consensus_clustering_tpu_torch.ops import _build
+from consensus_clustering_tpu_torch.ops.bitpack import (
+    PACK_BITS,
+    bit_values,
+)
+
+#: Columns (rows of x) per block of both kernels (CC_FUSED_TILE).
+TILE = 128
+#: Shared memory one block may use on an H100 (227 KB).
+MAX_SMEM_BYTES = 232448
+MAX_LANES = 65535
+
+#: Launches of the fused assign+pack kernel (B4) since last set to 0.
+launch_count = 0
+#: Launches of the final-assignment kernel since last set to 0.
+assign_launch_count = 0
+
+
+def _sq_norm(v: torch.Tensor) -> torch.Tensor:
+    """(...,) sum of v[..., f]^2, f ascending, each op rounded."""
+    s = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for f in range(v.shape[-1]):
+        s = s + v[..., f] * v[..., f]
+    return s
+
+
+def row_sqdist_plain(
+    x: torch.Tensor, centroids: torch.Tensor, k: int
+) -> torch.Tensor:
+    """(..., n, k_max) distances of x (..., n, d) to centroids
+    (..., k_max, d), batch dimensions broadcast; slots >= k are +inf.
+
+    The plain version of the kernels' shared routine: an explicit per-row
+    reduction over d, never a GEMM, so every entry is the same whatever
+    rows share the call.
+    """
+    x_sq = _sq_norm(x)
+    c_sq = _sq_norm(centroids)
+    cross = torch.zeros(
+        torch.broadcast_shapes(x.shape[:-2], centroids.shape[:-2])
+        + (x.shape[-2], centroids.shape[-2]),
+        dtype=x.dtype, device=x.device,
+    )
+    for f in range(x.shape[-1]):
+        cross = cross + x[..., :, None, f] * centroids[..., None, :, f]
+    dist = torch.clamp((x_sq[..., None] - 2.0 * cross) + c_sq[..., None, :],
+                       min=0.0)
+    k_max = centroids.shape[-2]
+    valid = torch.arange(k_max, device=x.device) < k
+    return torch.where(valid, dist, torch.full_like(dist, float("inf")))
+
+
+def smem_bytes_assign(d: int, k_max: int) -> int:
+    """Shared memory of one assign block (the layout of the .cu file)."""
+    return 4 * (k_max * d + k_max + TILE * d)
+
+
+def smem_bytes_fused(d: int, k_max: int, lane_group: int) -> int:
+    """Shared memory of one fused block staging ``lane_group`` lanes."""
+    return 4 * (TILE * d + lane_group * k_max * (d + 1) + k_max * TILE)
+
+
+def lane_group_size(d: int, k_max: int) -> int:
+    """Lanes of one plane word (at most 32) whose centroids a fused block
+    stages at once: as many as fit in shared memory."""
+    fixed = smem_bytes_fused(d, k_max, 0)
+    per_lane = 4 * k_max * (d + 1)
+    return max(0, min(PACK_BITS, (MAX_SMEM_BYTES - fixed) // per_lane))
+
+
+def _library():
+    lib = _build.load("fused_block")
+    if not getattr(lib, "_cc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cc_assign_labels.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+        lib.cc_assign_labels.restype = ctypes.c_int
+        lib.cc_fused_assign_pack.argtypes = [
+            p, p, i, i, i, i, i, p, i, i, i, p, p,
+        ]
+        lib.cc_fused_assign_pack.restype = ctypes.c_int
+        lib.cc_error_string.argtypes = [ctypes.c_int]
+        lib.cc_error_string.restype = ctypes.c_char_p
+        lib._cc_typed = True
+    return lib
+
+
+def _check_status(lib, status, what):
+    if status != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.cc_error_string(status).decode()}"
+        )
+
+
+# -- the final assignment ------------------------------------------------
+
+
+def assign_labels_plain(
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`assign_labels`."""
+    dist = row_sqdist_plain(x[lane_src.long()], centroids, k)
+    best = dist.min(dim=-1)
+    return best.indices, best.values
+
+
+def assign_labels_kernel(
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``assign_kernel`` of ``csrc/fused_block.cu``."""
+    global assign_launch_count
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"the assignment kernel needs CUDA tensors, got {x.device}"
+        )
+    if x.dtype != torch.float32 or centroids.dtype != torch.float32:
+        raise ValueError(
+            f"the assignment kernel is float32-only, got {x.dtype} / "
+            f"{centroids.dtype}"
+        )
+    b, n, d = x.shape
+    lanes, k_max, d_c = centroids.shape
+    if d_c != d or lane_src.shape != (lanes,):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, centroids "
+            f"{tuple(centroids.shape)}, lane_src {tuple(lane_src.shape)}"
+        )
+    if not 1 <= k <= k_max:
+        raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
+    if lanes > MAX_LANES:
+        raise ValueError(f"{lanes} lanes exceed the kernel grid's {MAX_LANES}")
+    if smem_bytes_assign(d, k_max) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"d={d}, k_max={k_max} need {smem_bytes_assign(d, k_max)} bytes "
+            f"of shared memory per block; the kernel's layout holds "
+            f"{MAX_SMEM_BYTES}"
+        )
+    x = x.contiguous()
+    centroids = centroids.contiguous()
+    lane_src = lane_src.to(device=x.device, dtype=torch.int32).contiguous()
+    labels = torch.empty((lanes, n), dtype=torch.int32, device=x.device)
+    dmin = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
+    lib = _library()
+    status = lib.cc_assign_labels(
+        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes, n, d,
+        k_max, int(k), labels.data_ptr(), dmin.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_status(lib, status, "assignment")
+    assign_launch_count += 1
+    return labels.long(), dmin
+
+
+def assign_labels(
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's nearest-centroid labels and min-distances.
+
+    Args:
+      x: (B, n, d) resamples.
+      lane_src: (L,) resample of each lane.
+      centroids: (L, k_max, d) final centroids.
+      k: active slots.
+
+    Returns:
+      (labels (L, n) int64, min-distances (L, n)).
+    """
+    if x.device.type == "cpu":
+        return assign_labels_plain(x, lane_src, centroids, k)
+    return assign_labels_kernel(x, lane_src, centroids, k)
+
+
+# -- the fused assign + pack step (B4) -----------------------------------
+
+
+def fused_planes_plain(
+    x_cols: torch.Tensor,
+    centroids: torch.Tensor,
+    k: int,
+    coplanes: torch.Tensor,
+    row0: int,
+    n_words: int,
+) -> torch.Tensor:
+    """The plain version of :func:`fused_assign_pack`: labels of every
+    (lane, column) by :func:`row_sqdist_plain`, then the co-sampled ones
+    scattered into planes (the reference's ``fused_planes_reference``)."""
+    n_lanes, k_max, _ = centroids.shape
+    n_cols = x_cols.shape[0]
+    dev = x_cols.device
+    planes = torch.zeros((k_max, n_words, n_cols), dtype=torch.int32,
+                         device=dev)
+    if n_lanes == 0:
+        return planes
+    labels = row_sqdist_plain(x_cols[None], centroids, k).argmin(dim=-1)
+    rows = int(row0) + torch.arange(n_lanes, device=dev)
+    word = rows // PACK_BITS
+    shift = (rows % PACK_BITS).to(torch.int32)
+    keep = word < n_words
+    words = coplanes.to(torch.int32)[word.clamp(max=n_words - 1)]
+    sampled = ((words >> shift[:, None]) & 1) != 0
+    slots = torch.arange(k_max, device=dev)
+    onehot = (labels[:, None, :] == slots[None, :, None]) & sampled[:, None]
+    vals = onehot.to(torch.int32) * bit_values(shift)[:, None, None]
+    # Disjoint bits per (plane, word, column): integer add is bitwise OR.
+    planes.index_add_(1, word[keep], vals[keep].transpose(0, 1))
+    return planes
+
+
+def fused_assign_pack_kernel(
+    x_cols: torch.Tensor,
+    centroids: torch.Tensor,
+    k: int,
+    coplanes: torch.Tensor,
+    row0: int,
+    n_words: int,
+) -> torch.Tensor:
+    """Launch ``fused_planes_kernel`` of ``csrc/fused_block.cu``."""
+    global launch_count
+    if x_cols.device.type != "cuda":
+        raise ValueError(
+            f"the fused assign+pack kernel needs CUDA tensors, got "
+            f"{x_cols.device}"
+        )
+    if x_cols.dtype != torch.float32 or centroids.dtype != torch.float32:
+        raise ValueError(
+            f"the fused kernel is float32-only, got {x_cols.dtype} / "
+            f"{centroids.dtype}"
+        )
+    if coplanes.dtype != torch.int32:
+        raise ValueError(f"coplanes must be int32 bit patterns, got "
+                         f"{coplanes.dtype}")
+    n_cols, d = x_cols.shape
+    n_lanes, k_max, d_c = centroids.shape
+    if d_c != d or tuple(coplanes.shape) != (n_words, n_cols):
+        raise ValueError(
+            f"shape mismatch: x_cols {tuple(x_cols.shape)}, centroids "
+            f"{tuple(centroids.shape)}, coplanes {tuple(coplanes.shape)}, "
+            f"n_words {n_words}"
+        )
+    if not 1 <= k <= k_max:
+        raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
+    group = lane_group_size(d, k_max)
+    if group < 1:
+        raise ValueError(
+            f"d={d}, k_max={k_max}: one lane's centroids do not fit the "
+            f"kernel's {MAX_SMEM_BYTES} bytes of shared memory"
+        )
+    x_cols = x_cols.contiguous()
+    centroids = centroids.contiguous()
+    coplanes = coplanes.contiguous()
+    planes = torch.empty((k_max, n_words, n_cols), dtype=torch.int32,
+                         device=x_cols.device)
+    lib = _library()
+    status = lib.cc_fused_assign_pack(
+        x_cols.data_ptr(), centroids.data_ptr(), n_lanes, n_cols, d, k_max,
+        int(k), coplanes.data_ptr(), int(row0), n_words, group,
+        planes.data_ptr(),
+        torch.cuda.current_stream(x_cols.device).cuda_stream,
+    )
+    _check_status(lib, status, "fused assign+pack")
+    launch_count += 1
+    return planes
+
+
+def fused_assign_pack(
+    x_cols: torch.Tensor,
+    centroids: torch.Tensor,
+    k: int,
+    coplanes: torch.Tensor,
+    row0: int,
+    *,
+    n_words: int,
+) -> torch.Tensor:
+    """Final assignment + bit-plane packing of one block.
+
+    Args:
+      x_cols: (n_cols, d) float32 element rows.
+      centroids: (n_lanes, k_max, d) final per-lane centroids
+        (``KMeans.fit(...)[1]``).
+      k: active slots.
+      coplanes: (n_words, n_cols) int32 co-sample planes of the block:
+        bit ``row0 + l`` of column j says element j is in lane l's
+        resample.
+      row0: bit offset of lane 0.
+      n_words: words of the block's planes.
+
+    Returns:
+      (k_max, n_words, n_cols) int32 planes, bit-identical to
+      :func:`.bitpack.pack_label_planes` of the lanes' final labels.
+    """
+    if x_cols.device.type == "cpu":
+        return fused_planes_plain(x_cols, centroids, k, coplanes, row0,
+                                  n_words)
+    return fused_assign_pack_kernel(x_cols, centroids, k, coplanes, row0,
+                                    n_words)

@@ -1,0 +1,500 @@
+"""The streaming H-block sweep on one device: state kept on the device,
+H a runtime argument, adaptive early stop.
+
+The port of the reference package's ``parallel/streaming.py`` for one
+device.  The sweep runs as blocks of ``stream_h_block`` resamples:
+
+- **State on the device.**  Dense: per-K ``mij`` (nK, N, N) and ``iij``
+  (N, N) int32.  Packed: per-K cluster bit-planes ``planes`` (nK, k_max,
+  w_cap, n_pad2) and co-sample planes ``coplanes`` (w_cap, n_pad2), int32
+  words holding uint32 bit patterns (:mod:`..ops.bitpack`), 1/32 the bytes;
+  int32 Mij/Iij exist only as row tiles of ``tile_r`` rows, popcounted
+  (:mod:`..ops.popcount`), turned into Cij, histogrammed and dropped.  The
+  state is updated in place (block b owns words ``b * wb .. b * wb + wb``).
+- **H is a runtime argument.**  One engine serves any ``n_iterations``
+  (packed: up to the capacity its build config's H sets).
+- **Bit-exact at full H.**  Every draw folds its GLOBAL resample index
+  (the plan's ``h_start``, the lane keys), labels are a pure per-lane
+  function of (key, x_sub, k), and the counts are exact integers, so the
+  streamed full-H Mij, Iij, cdf and pac_area equal the monolithic sweep's
+  bit for bit, dense or packed.
+- **Fused block step** (packed, ``fuse_block``): the clusterer returns its
+  final centroids and :func:`..ops.fused_block.fused_assign_pack` assigns
+  and packs every column against the block's own co-sample planes, so
+  labels never reach device memory; the unfused step packs the labels.
+  Both give the same planes bit for bit.
+- **Adaptive early stop** (:func:`adaptive_decision`), with the reference's
+  rule, on the per-block PAC trajectory.
+
+The reference pipelines its driver (block b+1 is dispatched before block
+b's curves are read, and a stop discards it); this driver is synchronous,
+which gives the same answer: the same ``h_effective``, the same trajectory,
+and no block beyond the stop in the result.  Rows past ``h_total`` in the
+last block are padding: their plan rows are -1, and their lanes are not
+clustered (a per-lane result, so skipping them changes nothing).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from consensus_clustering_tpu_torch import rng
+from consensus_clustering_tpu_torch.config import SweepConfig, not_ported
+from consensus_clustering_tpu_torch.device import resolve_device
+from consensus_clustering_tpu_torch.models.protocol import Clusterer
+from consensus_clustering_tpu_torch.ops import launch_counts
+from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
+from consensus_clustering_tpu_torch.ops.bitpack import (
+    pack_cosample_planes,
+    pack_label_planes,
+    packed_width,
+)
+from consensus_clustering_tpu_torch.ops.coassoc import coassociation_counts
+from consensus_clustering_tpu_torch.ops.fused_block import fused_assign_pack
+from consensus_clustering_tpu_torch.ops.hist import consensus_hist_counts
+from consensus_clustering_tpu_torch.ops.popcount import packed_coassoc_counts
+from consensus_clustering_tpu_torch.ops.resample import (
+    cosample_counts,
+    resample_indices,
+)
+from consensus_clustering_tpu_torch.parallel.sweep import (
+    build_kernels,
+    curves_from_counts,
+    fit_resample_lanes,
+    kernel_route,
+    launches_since,
+    resample_lane_keys,
+)
+from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+
+#: Rows of a packed evaluation tile (before rounding up to a multiple of 8).
+TILE_ROWS = 256
+
+
+def adaptive_decision(
+    prev_pac: Optional[np.ndarray],
+    pac: np.ndarray,
+    quiet: int,
+    tol: float,
+    patience: int,
+    min_h: int,
+    h_done: int,
+    n_iterations: int,
+) -> Tuple[int, bool]:
+    """The reference's early-stop rule after one block: ``(quiet, stop)``.
+
+    A block is quiet when every K's PAC moved less than ``tol`` since the
+    previous block (the first block is never quiet and resets nothing);
+    the stream stops once ``patience`` consecutive blocks were quiet, at
+    least ``min_h`` resamples are in, and resamples remain.
+    """
+    if prev_pac is not None:
+        if np.max(np.abs(pac - prev_pac)) < tol:
+            quiet += 1
+        else:
+            quiet = 0
+    stop = quiet >= patience and min_h <= h_done < n_iterations
+    return quiet, stop
+
+
+class StreamingSweep:
+    """The H-block step on one device plus the host driver that streams it.
+
+    Build once per (shape, config-minus-H) and call :meth:`run` for any
+    ``n_iterations`` (packed: up to the capacity of the build config's H).
+    """
+
+    def __init__(
+        self,
+        clusterer: Clusterer,
+        config: SweepConfig,
+        mesh=None,
+        device=None,
+    ):
+        if config.stream_h_block is None:
+            raise ValueError(
+                "StreamingSweep needs SweepConfig.stream_h_block (the "
+                "resamples-per-block size); use build_sweep for the "
+                "monolithic program"
+            )
+        if mesh is not None:
+            raise not_ported("mesh (multi-device sweeps)", "A13")
+        self.config = config
+        self.clusterer = clusterer
+        self.device = resolve_device(device)
+        n = config.n_samples
+        self._hb = config.stream_h_block
+        self._n_ks = len(config.k_values)
+        packed = config.accum_repr == "packed"
+        self._packed = packed
+        self.packed_kernel = None
+        self.fuse_block = None
+        self.fused_kernel = None
+        if packed:
+            self.packed_kernel = kernel_route(self.device)
+            eligible = (
+                getattr(clusterer, "supports_fused_assign", False)
+                and config.dtype == "float32"
+            )
+            if config.fuse_block == "on" and not eligible:
+                raise ValueError(
+                    "fuse_block='on' needs an f32 dtype and a clusterer "
+                    "declaring supports_fused_assign (labels a pure "
+                    "nearest-centroid function of fit()'s centroids); got "
+                    f"dtype={config.dtype!r}, clusterer "
+                    f"{type(clusterer).__name__}"
+                )
+            if config.fuse_block == "on" or (
+                config.fuse_block == "auto" and eligible
+            ):
+                self.fuse_block = "fused"
+                self.fused_kernel = kernel_route(self.device)
+            else:
+                self.fuse_block = "unfused"
+            # Capacity: the build config's H in whole blocks; each block
+            # owns wb whole words, so block b's bits start at word b * wb.
+            self._n_blocks_cap = -(-config.n_iterations // self._hb)
+            self._h_cap = self._n_blocks_cap * self._hb
+            self._wb = packed_width(self._hb)
+            self._w_cap = self._n_blocks_cap * self._wb
+            # Row tiles of the evaluation: n_tiles equal tiles of tile_r
+            # rows (a multiple of 8) cover N; columns >= N hold no bits.
+            self._n_tiles = -(-n // TILE_ROWS)
+            tile_r = -(-n // self._n_tiles)
+            self._tile_r = -(-tile_r // 8) * 8
+            self._n_pad2 = self._tile_r * self._n_tiles
+
+    # -- state -----------------------------------------------------------
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Fresh zeroed int32 state, made on the device."""
+        n, n_ks, k_max = self.config.n_samples, self._n_ks, self.config.k_max
+        if self._packed:
+            shapes = {"planes": (n_ks, k_max, self._w_cap, self._n_pad2),
+                      "coplanes": (self._w_cap, self._n_pad2)}
+        else:
+            shapes = {"mij": (n_ks, n, n), "iij": (n, n)}
+        return {name: torch.zeros(shape, dtype=torch.int32, device=self.device)
+                for name, shape in shapes.items()}
+
+    def warmup(self) -> float:
+        """Build the CUDA kernels (nothing on the CPU); returns seconds."""
+        return build_kernels(self.device)
+
+    # -- the block step --------------------------------------------------
+
+    def _block_plan(self, key_resample, h_start: int, h_total: int):
+        """The block's (hb, n_sub) plan with rows >= h_total set to -1, its
+        global resample ids, and the count of valid rows."""
+        config = self.config
+        indices = resample_indices(
+            key_resample, config.n_samples, self._hb, config.n_sub,
+            h_start=h_start,
+        )
+        h_global = h_start + torch.arange(
+            self._hb, dtype=torch.int64, device=self.device
+        )
+        n_valid = max(0, min(self._hb, h_total - h_start))
+        indices[n_valid:] = -1
+        return indices, h_global, n_valid
+
+    def _fit(self, x_sub, h_global, n_valid, key_cluster, k,
+             return_centroids=False):
+        """One K over the block's valid lanes, whose subsamples are
+        ``x_sub`` (n_valid, n_sub, d): labels (hb, n_sub) with padding rows
+        -1, or the valid lanes' final centroids."""
+        config = self.config
+        if n_valid == 0:
+            if return_centroids:
+                return x_sub.new_zeros((0, config.k_max, config.n_features))
+            return torch.full((self._hb, config.n_sub), -1,
+                              dtype=torch.int64, device=self.device)
+        keys = resample_lane_keys(config, key_cluster, k, h_global[:n_valid])
+        out = fit_resample_lanes(
+            self.clusterer, config, keys, x_sub, k, config.k_max,
+            return_centroids=return_centroids,
+        )
+        if return_centroids:
+            return out
+        labels = torch.full((self._hb, config.n_sub), -1, dtype=torch.int64,
+                            device=self.device)
+        labels[:n_valid] = out
+        return labels
+
+    def _step_dense(self, state, x, x_cols, key_resample, key_cluster,
+                    h_start, h_total):
+        config = self.config
+        n, k_max = config.n_samples, config.k_max
+        indices, h_global, n_valid = self._block_plan(
+            key_resample, h_start, h_total
+        )
+        x_sub = x[indices[:n_valid]]
+        state["iij"] += cosample_counts(indices, n)
+        counts_per_k = []
+        for i, k in enumerate(config.k_values):
+            labels = self._fit(x_sub, h_global, n_valid, key_cluster, k)
+            state["mij"][i] += coassociation_counts(
+                labels, indices, n, k_max, config.chunk_size
+            )
+            # Curves from the ACCUMULATED counts: the consensus over every
+            # resample so far, at the last block the monolithic input.
+            cij = consensus_matrix(state["mij"][i], state["iij"])
+            counts_per_k.append(consensus_hist_counts(cij, n, 0, config.bins))
+        return counts_per_k
+
+    def _step_packed(self, state, x, x_cols, key_resample, key_cluster,
+                     h_start, h_total):
+        config = self.config
+        n, k_max, wb = config.n_samples, config.k_max, self._wb
+        indices, h_global, n_valid = self._block_plan(
+            key_resample, h_start, h_total
+        )
+        x_sub = x[indices[:n_valid]]
+        word0 = (h_start // self._hb) * wb
+        blk_coplanes = pack_cosample_planes(
+            indices, self._n_pad2, n_words=wb, row0=0
+        )
+        coplanes = state["coplanes"]
+        coplanes[word0:word0 + wb] = blk_coplanes
+        for i, k in enumerate(config.k_values):
+            if self.fuse_block == "fused":
+                cents = self._fit(x_sub, h_global, n_valid, key_cluster, k,
+                                  return_centroids=True)
+                blk = fused_assign_pack(x_cols, cents, k, blk_coplanes, 0,
+                                        n_words=wb)
+            else:
+                labels = self._fit(x_sub, h_global, n_valid, key_cluster, k)
+                blk = pack_label_planes(labels, indices, k_max, self._n_pad2,
+                                        n_words=wb, row0=0)
+            state["planes"][i, :, word0:word0 + wb] = blk
+        # The evaluation, per row tile: one (tile_r, n_pad2) Iij tile, then
+        # every K's Mij tile from its planes, turned into Cij, histogrammed
+        # and dropped: the only int32 counts that ever exist in the packed
+        # step.
+        words = state["planes"].reshape(self._n_ks, k_max * self._w_cap,
+                                        self._n_pad2)
+        counts = torch.zeros((self._n_ks, config.bins), dtype=torch.int64,
+                             device=self.device)
+        for t0 in range(0, self._n_pad2, self._tile_r):
+            tile = slice(t0, t0 + self._tile_r)
+            iij_t = packed_coassoc_counts(coplanes[:, tile], coplanes)
+            for i in range(self._n_ks):
+                mij_t = packed_coassoc_counts(words[i, :, tile], words[i])
+                cij_t = consensus_matrix(mij_t, iij_t, row_offset=t0)
+                counts[i] += consensus_hist_counts(cij_t, n, t0, config.bins)
+        return list(counts)
+
+    def columns(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The fused step's (n_pad2, d) float32 element rows: element j at
+        row j, zero pad rows (they carry no co-sample bits, so their
+        in-kernel labels are never used).  None for the other steps."""
+        if self.fuse_block != "fused":
+            return None
+        x_cols = torch.zeros((self._n_pad2, self.config.n_features),
+                             dtype=torch.float32, device=self.device)
+        x_cols[:self.config.n_samples] = x
+        return x_cols
+
+    def step(self, state, x, key, h_start: int, h_total: int, x_cols=None):
+        """One block: updates ``state`` in place, returns the per-K
+        ``hist``/``cdf``/``pac_area`` curves of the counts so far.
+        ``x_cols`` is :meth:`columns` of ``x``, made here when omitted."""
+        if x_cols is None:
+            x_cols = self.columns(x)
+        pair = rng.split(key)
+        step = self._step_packed if self._packed else self._step_dense
+        counts = step(state, x, x_cols, pair[0], pair[1], h_start, h_total)
+        return curves_from_counts(self.config, counts)
+
+    def finalize(self, state) -> Dict[str, torch.Tensor]:
+        """Mij (nK, N, N), Iij and Cij from the final state; in packed mode
+        the popcount of the full planes, its only full materialisation."""
+        n = self.config.n_samples
+        if self._packed:
+            k_max = self.config.k_max
+            cop = state["coplanes"]
+            iij = packed_coassoc_counts(cop, cop)[:n, :n]
+            mij = []
+            for planes in state["planes"]:
+                words = planes.reshape(k_max * self._w_cap, self._n_pad2)
+                mij.append(packed_coassoc_counts(words, words)[:n, :n])
+            mij = torch.stack(mij)
+        else:
+            mij, iij = state["mij"], state["iij"]
+        cij = torch.stack([consensus_matrix(m, iij) for m in mij])
+        return {"mij": mij, "iij": iij, "cij": cij}
+
+    def run_fused(self, *args, **kwargs):
+        """The reference's batch axis over k jobs (the serve fusion
+        path); not ported yet."""
+        raise not_ported("run_fused (the serve batch axis)", "A10")
+
+    # -- the driver ------------------------------------------------------
+
+    def run(
+        self,
+        x: np.ndarray,
+        seed: int,
+        n_iterations: int,
+        block_callback: Optional[Callable[[int, int, List[float]], None]] = None,
+        adaptive_tol: Optional[float] = None,
+        adaptive_patience: Optional[int] = None,
+        adaptive_min_h: Optional[int] = None,
+        checkpointer=None,
+        integrity_check_every: Optional[int] = None,
+        capture_state: bool = False,
+    ) -> Dict[str, Any]:
+        """Stream the sweep; returns host results and streaming stats.
+
+        ``n_iterations`` and the adaptive knobs (default: the build
+        config's) are runtime arguments.  ``block_callback(b, h_done,
+        pac_list)`` is called after each block.  ``capture_state`` (packed
+        only) returns the final state as ``final_state``: per-K planes in
+        K-values order cropped to the words run and the real N (``planes``
+        (nK, k_max, W, N), ``coplanes`` (W, N), int32 bit patterns); an
+        early-stopped run captures none, as the reference's does.
+
+        ``timing`` holds ``run_seconds``, ``resamples_per_second``
+        (h_effective x nK / run_seconds), ``device_memory``, ``device``,
+        ``kernel_launches`` and, packed, ``packed_kernel`` (cuda|plain),
+        ``fuse_block`` (fused|unfused) and, fused, ``fused_kernel``.
+        """
+        config = self.config
+        if checkpointer is not None:
+            raise not_ported("checkpointer (the block checkpoint ring)",
+                              "A16")
+        if integrity_check_every:
+            raise not_ported(
+                "integrity_check_every > 0 (the accumulator sentinel)",
+                "A16",
+            )
+        if n_iterations < 1:
+            raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
+        if self._packed and n_iterations > self._h_cap:
+            raise ValueError(
+                f"packed accumulator capacity is {self._h_cap} resamples "
+                f"(built from n_iterations={config.n_iterations}, block "
+                f"{self._hb}); got n_iterations={n_iterations} — rebuild "
+                "the engine with a config whose n_iterations covers the "
+                "largest H it will serve"
+            )
+        if capture_state and not self._packed:
+            raise ValueError(
+                "capture_state requires accum_repr='packed': the captured "
+                "state is the packed bit-planes"
+            )
+        if adaptive_tol is None:
+            adaptive_tol = config.adaptive_tol
+        if adaptive_patience is None:
+            adaptive_patience = config.adaptive_patience
+        if adaptive_min_h is None:
+            adaptive_min_h = config.adaptive_min_h
+        adaptive = adaptive_tol is not None
+        if adaptive and config.store_matrices:
+            raise ValueError(
+                "adaptive early stop is incompatible with store_matrices"
+            )
+        device = self.device
+        on_cuda = device.type == "cuda"
+        if on_cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        launches0 = launch_counts()
+        t0 = time.perf_counter()
+        xd = torch.as_tensor(np.asarray(x)).to(device=device,
+                                               dtype=config.torch_dtype)
+        key = rng.prng_key(seed, device)
+        x_cols = self.columns(xd)
+        state = self.init_state()
+        n_blocks = -(-n_iterations // self._hb)
+        trajectory: List[List[float]] = []
+        prev_pac = None
+        quiet = 0
+        stopped_early = False
+        h_effective = 0
+        host: Dict[str, np.ndarray] = {}
+        for b in range(n_blocks):
+            curves = self.step(state, xd, key, b * self._hb, n_iterations,
+                               x_cols=x_cols)
+            host = {name: v.cpu().numpy() for name, v in curves.items()}
+            h_effective = min((b + 1) * self._hb, n_iterations)
+            pac = host["pac_area"]
+            trajectory.append([float(v) for v in pac])
+            if block_callback is not None:
+                block_callback(b, h_effective, trajectory[-1])
+            if adaptive:
+                quiet, stop = adaptive_decision(
+                    prev_pac, pac, quiet, adaptive_tol, adaptive_patience,
+                    adaptive_min_h, h_effective, n_iterations,
+                )
+                if stop:
+                    stopped_early = True
+                    break
+            prev_pac = pac
+        out: Dict[str, Any] = dict(host)
+        if config.store_matrices and not stopped_early:
+            out.update({name: v.cpu().numpy()
+                        for name, v in self.finalize(state).items()})
+        if capture_state and not stopped_early:
+            w_used = -(-h_effective // self._hb) * self._wb
+            n = config.n_samples
+            out["final_state"] = {
+                "planes": state["planes"][:, :, :w_used, :n].cpu().numpy(),
+                "coplanes": state["coplanes"][:w_used, :n].cpu().numpy(),
+            }
+        if on_cuda:
+            torch.cuda.synchronize(device)
+        run_seconds = time.perf_counter() - t0
+        del state
+        out["streaming"] = {
+            "h_block": int(config.stream_h_block),
+            "h_block_padded": int(self._hb),
+            "h_requested": int(n_iterations),
+            "h_effective": int(h_effective),
+            "n_blocks_run": len(trajectory),
+            "stopped_early": stopped_early,
+            "pac_trajectory": trajectory,
+            "resumed_from_block": 0,
+            "checkpoint_writes": 0,
+            "integrity_checks": 0,
+            "integrity_check_every": 0,
+            "accum_repr": config.accum_repr,
+        }
+        out["timing"] = {
+            "run_seconds": run_seconds,
+            "resamples_per_second": h_effective * self._n_ks / max(
+                run_seconds, 1e-9
+            ),
+            "device": torch.cuda.get_device_name(device) if on_cuda else "cpu",
+            "device_memory": device_memory_stats(device) if on_cuda else {},
+            "kernel_launches": launches_since(launches0),
+        }
+        if self.packed_kernel is not None:
+            out["timing"]["packed_kernel"] = self.packed_kernel
+            out["timing"]["fuse_block"] = self.fuse_block
+            if self.fused_kernel is not None:
+                out["timing"]["fused_kernel"] = self.fused_kernel
+        return out
+
+
+def run_streaming_sweep(
+    clusterer: Clusterer,
+    config: SweepConfig,
+    x: np.ndarray,
+    seed: int,
+    device=None,
+    block_callback=None,
+) -> Dict[str, Any]:
+    """Build the engine, build the kernels and stream ``config``'s H: the
+    counterpart of :func:`..parallel.sweep.run_sweep`, whose ``timing``
+    adds ``compile_seconds`` (building the kernels)."""
+    engine = StreamingSweep(clusterer, config, device=device)
+    compile_seconds = engine.warmup()
+    out = engine.run(x, seed, config.n_iterations,
+                     block_callback=block_callback)
+    out["timing"]["compile_seconds"] = compile_seconds
+    return out

@@ -8,7 +8,9 @@ The port of the reference package's ``parallel/sweep.py`` for one device:
   ``fold_in(., h)`` under ``reseed_clusterer_per_resample``), the lanes are
   clustered in ``cluster_batch`` groups, and Mij, Cij, the histogram
   (the kernel of :mod:`..ops.hist` on the card) and the curves follow;
-- ``pac_area`` is re-derived from the assembled CDF, as the reference does.
+- ``pac_area`` is re-derived from the assembled CDF, as the reference does;
+- with ``accum_repr="packed"`` Mij and Iij come from bit-planes through the
+  popcount kernel (:mod:`..ops.popcount`), the same counts bit for bit.
 
 Where the reference compiles one program, this runs eagerly; the Lloyd loop
 checks on the host after each step whether any lane is still running.
@@ -26,18 +28,47 @@ from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
-from consensus_clustering_tpu_torch.ops import _build, hist, lloyd
+from consensus_clustering_tpu_torch.ops import _build, launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import (
     cdf_pac_from_counts,
     consensus_matrix,
 )
+from consensus_clustering_tpu_torch.ops.bitpack import (
+    coassoc_counts_packed,
+    cosample_counts_packed,
+)
 from consensus_clustering_tpu_torch.ops.coassoc import coassociation_counts
 from consensus_clustering_tpu_torch.ops.hist import consensus_hist_counts
+from consensus_clustering_tpu_torch.ops.popcount import packed_coassoc_counts
 from consensus_clustering_tpu_torch.ops.resample import (
     cosample_counts,
     resample_indices,
 )
 from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+
+#: The CUDA sources every sweep builds before it runs on the card.
+KERNELS = ("hist", "lloyd", "popcount", "fused_block")
+
+
+def build_kernels(device: torch.device) -> float:
+    """Build the kernels for a run on ``device`` (nothing on the CPU);
+    returns the seconds it took (0 when they are built already)."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        _build.build(KERNELS)
+    return time.perf_counter() - t0
+
+
+def kernel_route(device: torch.device) -> str:
+    """``cuda`` where the wrappers launch their kernels, ``plain`` where
+    they take their plain versions (CPU tensors)."""
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each kernel's launches since the :func:`..ops.launch_counts`
+    snapshot ``before``."""
+    return {name: n - before[name] for name, n in launch_counts().items()}
 
 
 def resample_lane_keys(
@@ -63,33 +94,54 @@ def fit_resample_lanes(
     x_sub: torch.Tensor,
     k: int,
     k_max: int,
+    return_centroids: bool = False,
 ) -> torch.Tensor:
-    """(H, n_sub) labels of every resample for one K.
+    """(H, n_sub) labels of every resample for one K, or with
+    ``return_centroids`` the (H, k_max, d) final centroids of each
+    resample's best restart (the clusterer's ``fit(...)[1]``, the fused
+    block step's input).
 
     ``cluster_batch`` groups the resamples so each group's Lloyd loop stops
     at its own slowest lane; ``split_init`` seeds every lane in one batch
-    first.  Labels are identical either way: they are a pure per-lane
+    first.  Results are identical either way: they are a pure per-lane
     function of (key, x_sub, k).
     """
+    def fit(keys_g, x_g, **kwargs):
+        if return_centroids:
+            return clusterer.fit(keys_g, x_g, k, k_max, **kwargs)[1]
+        return clusterer.fit_predict(keys_g, x_g, k, k_max, **kwargs)
+
     h = x_sub.shape[0]
     batch = config.cluster_batch
     if batch is None or batch >= h:
-        return clusterer.fit_predict(keys, x_sub, k, k_max)
+        return fit(keys, x_sub)
     groups = [slice(s, min(s + batch, h)) for s in range(0, h, batch)]
     if config.split_init and hasattr(clusterer, "init_centroids"):
         inits = clusterer.init_centroids(keys, x_sub, k, k_max)
-        parts = [
-            clusterer.fit_predict(
-                keys[g], x_sub[g], k, k_max, init_centroids=inits[g]
-            )
-            for g in groups
-        ]
+        parts = [fit(keys[g], x_sub[g], init_centroids=inits[g])
+                 for g in groups]
     else:
-        parts = [
-            clusterer.fit_predict(keys[g], x_sub[g], k, k_max)
-            for g in groups
-        ]
+        parts = [fit(keys[g], x_sub[g]) for g in groups]
     return torch.cat(parts)
+
+
+def curves_from_counts(
+    config: SweepConfig, counts_per_k
+) -> Dict[str, torch.Tensor]:
+    """Stacked per-K ``hist`` and ``cdf`` (nK, bins) from each K's strict
+    upper-triangle bin counts, and ``pac_area`` (nK,) re-derived from the
+    stacked CDF, as the reference does."""
+    lo, hi = config.pac_idx
+    hists, cdfs = [], []
+    for counts in counts_per_k:
+        hist_k, cdf_k, _ = cdf_pac_from_counts(
+            counts, config.n_samples, lo, hi, config.parity_zeros
+        )
+        hists.append(hist_k)
+        cdfs.append(cdf_k)
+    cdf = torch.stack(cdfs)
+    return {"hist": torch.stack(hists), "cdf": cdf,
+            "pac_area": cdf[:, hi - 1] - cdf[:, lo]}
 
 
 def build_sweep(
@@ -105,43 +157,47 @@ def build_sweep(
     n = config.n_samples
     h_total = config.n_iterations
     k_max = config.k_max
-    lo, hi = config.pac_idx
     dtype = config.torch_dtype
+    packed = config.accum_repr == "packed"
 
     def sweep(x: torch.Tensor, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(device=device, dtype=dtype)
         pair = rng.split(key.to(device))
         key_resample, key_cluster = pair[0], pair[1]
         indices = resample_indices(key_resample, n, h_total, config.n_sub)
-        iij = cosample_counts(indices, n)
+        if packed:
+            iij = cosample_counts_packed(
+                indices, n, popcount_fn=packed_coassoc_counts
+            )
+        else:
+            iij = cosample_counts(indices, n)
         x_sub = x[indices]
         h_global = torch.arange(h_total, dtype=torch.int64, device=device)
-        per_k = {"hist": [], "cdf": [], "mij": [], "cij": []}
+        counts, mijs, cijs = [], [], []
         for k in config.k_values:
             keys = resample_lane_keys(config, key_cluster, k, h_global)
             labels = fit_resample_lanes(
                 clusterer, config, keys, x_sub, k, k_max
             )
-            mij = coassociation_counts(
-                labels, indices, n, k_max, config.chunk_size
-            )
+            if packed:
+                mij = coassoc_counts_packed(
+                    labels, indices, n, k_max,
+                    popcount_fn=packed_coassoc_counts,
+                )
+            else:
+                mij = coassociation_counts(
+                    labels, indices, n, k_max, config.chunk_size
+                )
             cij = consensus_matrix(mij, iij)
-            counts = consensus_hist_counts(cij, n, 0, config.bins)
-            hist_k, cdf_k, _ = cdf_pac_from_counts(
-                counts, n, lo, hi, config.parity_zeros
-            )
-            per_k["hist"].append(hist_k)
-            per_k["cdf"].append(cdf_k)
+            counts.append(consensus_hist_counts(cij, n, 0, config.bins))
             if config.store_matrices:
-                per_k["mij"].append(mij)
-                per_k["cij"].append(cij)
-        out = {"hist": torch.stack(per_k["hist"]),
-               "cdf": torch.stack(per_k["cdf"])}
-        out["pac_area"] = out["cdf"][:, hi - 1] - out["cdf"][:, lo]
+                mijs.append(mij)
+                cijs.append(cij)
+        out = curves_from_counts(config, counts)
         if config.store_matrices:
             out["iij"] = iij
-            out["mij"] = torch.stack(per_k["mij"])
-            out["cij"] = torch.stack(per_k["cij"])
+            out["mij"] = torch.stack(mijs)
+            out["cij"] = torch.stack(cijs)
         return out
 
     sweep.device = device
@@ -161,22 +217,20 @@ def run_sweep(
     already built or on the CPU), ``run_seconds`` (wall clock until every
     result is on the host, after ``torch.cuda.synchronize()``),
     ``resamples_per_second`` (H x nK / run_seconds), ``device_memory``
-    (peak allocator bytes of this run; {} on the CPU) and
-    ``kernel_launches`` (launches of each kernel in this run).
+    (peak allocator bytes of this run; {} on the CPU),
+    ``kernel_launches`` (launches of each kernel in this run) and, for a
+    packed sweep, ``packed_kernel`` (``cuda`` or ``plain``).
     """
     sweep = build_sweep(clusterer, config, device)
     device = sweep.device
     on_cuda = device.type == "cuda"
-    t0 = time.perf_counter()
-    if on_cuda:
-        _build.build(["hist", "lloyd"])
-    compile_seconds = time.perf_counter() - t0
+    compile_seconds = build_kernels(device)
     x_dev = torch.as_tensor(np.asarray(x)).to(device)
     key = rng.prng_key(seed, device)
     if on_cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    launches0 = (hist.launch_count, lloyd.launch_count)
+    launches0 = launch_counts()
     r0 = time.perf_counter()
     out = sweep(x_dev, key)
     host = {name: value.cpu().numpy() for name, value in out.items()}
@@ -192,9 +246,8 @@ def run_sweep(
             torch.cuda.get_device_name(device) if on_cuda else "cpu"
         ),
         "device_memory": device_memory_stats(device) if on_cuda else {},
-        "kernel_launches": {
-            "hist": hist.launch_count - launches0[0],
-            "lloyd": lloyd.launch_count - launches0[1],
-        },
+        "kernel_launches": launches_since(launches0),
     }
+    if config.accum_repr == "packed":
+        host["timing"]["packed_kernel"] = kernel_route(device)
     return host

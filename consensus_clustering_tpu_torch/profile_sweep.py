@@ -1,10 +1,13 @@
 """Where the time of a sweep goes on the GPU: stages, kernels, idle share.
 
-    python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8]
+    python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8] [--stream H_BLOCK]
 
 Runs the headline configuration of ``chip_smoke.py`` (make_blobs N=5000
 d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
-after a warm-up:
+after a warm-up, through the monolithic dense sweep or, with ``--stream``,
+through the streaming engine (``stream_h_block=H_BLOCK``,
+``accum_repr="packed"``, ``fuse_block="auto"``), whose stages split into
+clustering, packing (B4) and evaluation (B3, Cij, B1):
 
 1. over ``--ks``, plain, for the wall clock and resamples/s;
 2. over ``--ks``, with each stage of the sweep wrapped, from here, in a
@@ -19,8 +22,10 @@ after a warm-up:
    longer than the run it traces.
 
 Prints the card's name and power limit, then one JSON line after parts 1
-and 2 and one after part 3, so a cut run keeps what it measured.  Needs a
-CUDA device.
+and 2 and one after part 3, so a cut run keeps what it measured.  With
+``--ab H_BLOCK`` it instead times the monolithic and the streamed sweep in
+turns (monolithic, streamed, streamed, monolithic) on the same card and
+prints one JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,30 +46,52 @@ from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.data import make_blobs
 from consensus_clustering_tpu_torch.models import kmeans
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
-from consensus_clustering_tpu_torch.parallel import sweep
+from consensus_clustering_tpu_torch.parallel import streaming, sweep
+from consensus_clustering_tpu_torch.parallel.streaming import (
+    run_streaming_sweep,
+)
 from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
 
-# (module, attribute, stage name): the sweep's stages.
-_STAGES = (
-    (sweep, "resample_indices", "plan"),
-    (sweep, "cosample_counts", "iij"),
-    (sweep, "fit_resample_lanes", "cluster"),
+_CLUSTER_STAGES = (
     (kmeans, "_kmeanspp_init", "cluster/kmeans++"),
     (kmeans, "lloyd_step", "cluster/lloyd_step"),
     (kmeans, "_apply_update", "cluster/update"),
-    (kmeans, "masked_sqdist", "cluster/final_assign"),
-    (sweep, "coassociation_counts", "mij"),
-    (sweep, "consensus_matrix", "cij"),
-    (sweep, "consensus_hist_counts", "hist"),
-    (sweep, "cdf_pac_from_counts", "curves"),
+    (kmeans, "assign_labels", "cluster/final_assign"),
 )
+# (module, attribute, stage name): the stages of each engine.
+_STAGES = {
+    "monolithic": (
+        (sweep, "resample_indices", "plan"),
+        (sweep, "cosample_counts", "iij"),
+        (sweep, "fit_resample_lanes", "cluster"),
+        *_CLUSTER_STAGES,
+        (sweep, "coassociation_counts", "mij"),
+        (sweep, "consensus_matrix", "cij"),
+        (sweep, "consensus_hist_counts", "hist"),
+        (sweep, "cdf_pac_from_counts", "curves"),
+    ),
+    "stream": (
+        (streaming, "resample_indices", "plan"),
+        (streaming, "pack_cosample_planes", "coplanes"),
+        (streaming, "fit_resample_lanes", "cluster"),
+        *_CLUSTER_STAGES,
+        (streaming, "fused_assign_pack", "pack (B4)"),
+        (streaming, "pack_label_planes", "pack (unfused)"),
+        (streaming, "packed_coassoc_counts", "popcount (B3)"),
+        (streaming, "consensus_matrix", "cij"),
+        (streaming, "consensus_hist_counts", "hist"),
+        (sweep, "cdf_pac_from_counts", "curves"),
+    ),
+}
+
+_KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
+                    "fused_planes_kernel", "assign_kernel")
 
 
 def _kernel_class(name: str) -> str:
-    if name.startswith("lloyd_"):
-        return name.split("(")[0]
-    if name.startswith("hist_kernel"):
-        return "hist_kernel"
+    for prefix in _KERNEL_PREFIXES:
+        if name.startswith(prefix):
+            return name.split("(")[0]
     lowered = name.lower()
     if "gemm" in lowered or "cutlass" in lowered or "xmma" in lowered:
         return "cublas gemm"
@@ -79,10 +106,10 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
-def _timed_stages(km, config, x):
+def _timed_stages(km, config, x, run, stages):
     seconds = collections.defaultdict(float)
     calls = collections.Counter()
-    originals = [(m, a, getattr(m, a)) for m, a, _ in _STAGES]
+    originals = [(m, a, getattr(m, a)) for m, a, _ in stages]
 
     def timed(fn, name):
         @functools.wraps(fn)
@@ -96,15 +123,47 @@ def _timed_stages(km, config, x):
             return out
         return wrapper
 
-    for module, attr, name in _STAGES:
+    for module, attr, name in stages:
         setattr(module, attr, timed(getattr(module, attr), name))
     try:
-        wall = run_sweep(km, config, x, 23)["timing"]["run_seconds"]
+        wall = run(km, config, x, 23)["timing"]["run_seconds"]
     finally:
         for module, attr, fn in originals:
             setattr(module, attr, fn)
     return wall, {n: {"calls": calls[n], "seconds": seconds[n]}
-                  for _, _, n in _STAGES}
+                  for _, _, n in stages}
+
+
+def _ab(km, config, x, h_block):
+    """Monolithic dense, streamed packed, streamed packed, monolithic
+    dense: run seconds, launches and whether the curves agree."""
+    streamed = dataclasses.replace(config, stream_h_block=h_block,
+                                   accum_repr="packed", fuse_block="auto")
+    run_sweep(km, dataclasses.replace(config, k_values=(2, 3),
+                                      n_iterations=32), x, 23)  # warm-up
+    runs = []
+    for name in ("monolithic", "streamed", "streamed", "monolithic"):
+        out = (run_sweep(km, config, x, 23) if name == "monolithic" else
+               run_streaming_sweep(km, streamed, x, 23))
+        runs.append({"engine": name,
+                     "run_seconds": out["timing"]["run_seconds"],
+                     "launches": out["timing"]["kernel_launches"],
+                     "pac_area": out["pac_area"].tolist()})
+    print(json.dumps({
+        "profile": "monolithic vs streamed, in turns", "h": config.n_iterations,
+        "k_values": list(config.k_values), "stream_h_block": h_block,
+        "nvidia_smi": _smi(), "device": torch.cuda.get_device_name(0),
+        "runs": runs,
+        "pac_equal": all(r["pac_area"] == runs[0]["pac_area"] for r in runs),
+    }, default=float), flush=True)
+    return 0
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
 
 
 def main(argv=None):
@@ -112,6 +171,8 @@ def main(argv=None):
     parser.add_argument("--ks", default=",".join(map(str, range(2, 21))))
     parser.add_argument("--profile-k", type=int, default=8)
     parser.add_argument("--h", type=int, default=500)
+    parser.add_argument("--stream", type=int, default=None, metavar="H_BLOCK")
+    parser.add_argument("--ab", type=int, default=None, metavar="H_BLOCK")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sweep: no CUDA device is visible", file=sys.stderr)
@@ -120,24 +181,30 @@ def main(argv=None):
     x, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
                       cluster_std=3.0, random_state=0)
     x = x.astype(np.float32)
+    engine = "monolithic" if args.stream is None else "stream"
     config = SweepConfig(
         n_samples=5000, n_features=50, k_values=ks, n_iterations=args.h,
         store_matrices=False, chunk_size=4, cluster_batch=16,
     )
+    if args.stream is not None:
+        config = dataclasses.replace(
+            config, stream_h_block=args.stream, accum_repr="packed",
+            fuse_block="auto",
+        )
+    run = run_sweep if args.stream is None else run_streaming_sweep
     km = KMeans(n_init=3)
+    if args.ab is not None:
+        return _ab(km, config, x, args.ab)
     # Warm-up: build the kernels and let cuBLAS pick its algorithms.
-    run_sweep(km, SweepConfig(n_samples=5000, n_features=50, k_values=(2, 3),
-                              n_iterations=16, store_matrices=False,
-                              chunk_size=4), x, 23)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip()
+    run(km, dataclasses.replace(config, k_values=(2, 3),
+                                n_iterations=min(args.h, 32)), x, 23)
+    smi = _smi()
     print(smi, flush=True)
-    plain = run_sweep(km, config, x, 23)["timing"]
-    timed_wall, stages = _timed_stages(km, config, x)
+    plain = run(km, config, x, 23)["timing"]
+    timed_wall, stages = _timed_stages(km, config, x, run, _STAGES[engine])
     print(json.dumps({
-        "profile": "headline stages", "k_values": list(ks), "h": args.h,
+        "profile": f"headline stages ({engine})", "k_values": list(ks),
+        "h": args.h, "stream_h_block": args.stream,
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "run_seconds": plain["run_seconds"],
         "resamples_per_second": plain["resamples_per_second"],
@@ -147,11 +214,11 @@ def main(argv=None):
     }, default=float), flush=True)
 
     one_k = dataclasses.replace(config, k_values=(args.profile_k,))
-    one_k_plain = run_sweep(km, one_k, x, 23)["timing"]["run_seconds"]
+    one_k_plain = run(km, one_k, x, 23)["timing"]["run_seconds"]
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        run_sweep(km, one_k, x, 23)
+        run(km, one_k, x, 23)
     kernels = [e for e in prof.key_averages() if _self_device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     by_class = collections.defaultdict(lambda: [0, 0.0])
@@ -161,7 +228,8 @@ def main(argv=None):
         entry[1] += _self_device_us(e) / 1e6
     busy_s = sum(v[1] for v in by_class.values())
     print(json.dumps({
-        "profile": "one K under torch.profiler", "h": args.h,
+        "profile": f"one K under torch.profiler ({engine})", "h": args.h,
+        "stream_h_block": args.stream,
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "profile_k": args.profile_k,
         "profile_k_run_seconds": one_k_plain,

@@ -11,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from consensus_clustering_tpu_torch.ops import hist, lloyd
+from consensus_clustering_tpu_torch.ops import fused_block, hist, lloyd, popcount
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
+from consensus_clustering_tpu_torch.ops.bitpack import (
+    pack_cosample_planes,
+    pack_label_planes,
+    popcount_accumulate,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +71,73 @@ def test_small_fit_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; ski
     for k in range(2, 5):
         assert abs(fits[0].cdf_at_K_data[k]["pac_area"]
                    - fits[1].cdf_at_K_data[k]["pac_area"]) <= 0.02
+
+
+@pytest.mark.parametrize("l_words,r,c,col0", [(400, 256, 5120, 1024),
+                                              (13, 264, 300, 0),
+                                              (20, 64, 1000, 936)])
+def test_popcount_kernel_equals_plain(cuda, l_words, r, c, col0):
+    g = torch.Generator(device=cuda).manual_seed(l_words + r)
+    cols = torch.randint(-2**31, 2**31 - 1, (l_words, c), generator=g,
+                         device=cuda, dtype=torch.int32)
+    rows = cols[:, col0:col0 + r] if col0 + r <= c else torch.randint(
+        -2**31, 2**31 - 1, (l_words, r), generator=g, device=cuda,
+        dtype=torch.int32)
+    got = popcount.packed_coassoc_counts(rows, cols)
+    assert torch.equal(got, popcount_accumulate(rows, cols))
+
+
+@pytest.mark.parametrize("n_cols,d,lanes,k_max,k,n_words,row0",
+                         [(5120, 50, 100, 20, 7, 4, 0),
+                          (300, 7, 13, 5, 4, 2, 3)])
+def test_fused_kernel_equals_plain_and_unfused(cuda, n_cols, d, lanes, k_max,
+                                               k, n_words, row0):
+    g = torch.Generator(device=cuda).manual_seed(n_cols)
+    x = torch.randn((n_cols, d), generator=g, device=cuda) * 3
+    idx = torch.stack([torch.randperm(n_cols, generator=g, device=cuda)
+                       [:int(0.8 * n_cols)] for _ in range(lanes)])
+    cop = pack_cosample_planes(idx, n_cols, n_words=n_words, row0=row0)
+    for xs in (torch.round(x * 8) / 8, x):
+        cents = xs[torch.randint(0, n_cols, (lanes, k_max), generator=g,
+                                 device=cuda)]
+        got = fused_block.fused_assign_pack(xs, cents, k, cop, row0,
+                                            n_words=n_words)
+        assert torch.equal(got, fused_block.fused_planes_plain(
+            xs, cents, k, cop, row0, n_words))
+        labels, _ = fused_block.assign_labels(
+            xs[None], torch.zeros(lanes, dtype=torch.int64, device=cuda),
+            cents, k)
+        unfused = pack_label_planes(torch.gather(labels, 1, idx), idx, k_max,
+                                    n_cols, n_words=n_words, row0=row0)
+        assert torch.equal(got, unfused)
+
+
+def test_assign_kernel_equals_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((4, 1000, 50), generator=g, device=cuda)
+    src = torch.arange(4, device=cuda).repeat_interleave(3)
+    cents = x[src[:, None], torch.randint(0, 1000, (12, 20), generator=g,
+                                          device=cuda)]
+    got = fused_block.assign_labels(x, src, cents, 17)
+    ref = fused_block.assign_labels_plain(x, src, cents, 17)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_streamed_packed_fit_equals_monolithic_on_the_card(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+
+    x, _ = make_blobs(n_samples=200, n_features=6, centers=3,
+                      cluster_std=1.5, random_state=2)
+    kwargs = dict(K_range=range(2, 5), n_iterations=20, random_state=3,
+                  device="cuda")
+    mono = ConsensusClustering(**kwargs).fit(x)
+    stream = ConsensusClustering(**kwargs, stream_h_block=6,
+                                 accum_repr="packed").fit(x)
+    assert stream.metrics_["timing"] == {
+        "packed_kernel": "cuda", "fuse_block": "fused",
+        "fused_kernel": "cuda"}
+    assert all(n > 0 for n in stream.metrics_["kernel_launches"].values())
+    for k in range(2, 5):
+        for name in ("mij", "iij", "hist", "cdf"):
+            np.testing.assert_array_equal(stream.cdf_at_K_data[k][name],
+                                          mono.cdf_at_K_data[k][name])

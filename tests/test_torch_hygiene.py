@@ -4,8 +4,8 @@
   (checked with ``ast`` and in a subprocess where both are poisoned).
 - ``fit`` without ``device`` raises when no GPU is visible.
 - Features not ported yet raise ``NotImplementedError``.
-- The kernel modules import on the CPU, and the build raises a clear error
-  without ``nvcc``.
+- The kernel modules import on the CPU, their wrappers take the plain
+  versions there, and the build raises a clear error without ``nvcc``.
 """
 
 import ast
@@ -26,7 +26,14 @@ from consensus_clustering_tpu_torch.convert import (
     key_from_jax,
     kmeans_from_jax,
 )
-from consensus_clustering_tpu_torch.ops import _build, hist, lloyd
+from consensus_clustering_tpu_torch.ops import (
+    _build,
+    fused_block,
+    hist,
+    launch_counts,
+    lloyd,
+    popcount,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(port.__file__))
@@ -71,6 +78,13 @@ from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
 x, _ = make_blobs(n_samples=60, n_features=3, centers=2, random_state=0)
 cc = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
                          device="cpu").fit(x)
+st = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                         device="cpu", stream_h_block=3, accum_repr="packed",
+                         fuse_block="auto").fit(x)
+assert st.metrics_["timing"] == {"packed_kernel": "plain",
+                                 "fuse_block": "fused", "fused_kernel": "plain"}
+assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"], st.cdf_at_K_data[k]["mij"])
+           for k in (2, 3))
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -104,8 +118,8 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(stream_h_block=16),
-     dict(accum_repr="packed"), dict(mode="estimate"),
+    [dict(mesh=object()), dict(stream_h_block=16, integrity_check_every=2),
+     dict(mode="auto"), dict(mode="estimate"),
      dict(checkpoint_dir="ckpt"), dict(compute_consensus_labels=True),
      dict(autotune=True), dict(progress_callback=print),
      dict(plot_cdf=True)],
@@ -146,21 +160,39 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_ship_with_the_package():
-    for name in ("hist", "lloyd"):
+    for name in ("hist", "lloyd", "popcount", "fused_block"):
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR)
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, f"{name}.cu"))
-    assert hist.launch_count >= 0 and lloyd.launch_count >= 0
+    assert set(launch_counts()) == {"hist", "lloyd", "popcount",
+                                    "fused_block", "assign"}
+    assert all(n >= 0 for n in launch_counts().values())
 
 
 def test_cpu_wrappers_take_the_plain_versions():
-    before = (hist.launch_count, lloyd.launch_count)
+    before = launch_counts()
     hist.consensus_hist_counts(torch.rand(9, 9), 9, 0, 20)
     lloyd.lloyd_step(torch.rand(1, 9, 2), torch.zeros(1, dtype=torch.int64),
                      torch.rand(1, 3, 2), 3)
-    assert (hist.launch_count, lloyd.launch_count) == before
+    words = torch.randint(-2**31, 2**31 - 1, (3, 9), dtype=torch.int32)
+    popcount.packed_coassoc_counts(words, words)
+    fused_block.assign_labels(torch.rand(1, 9, 2),
+                              torch.zeros(1, dtype=torch.int64),
+                              torch.rand(1, 3, 2), 3)
+    fused_block.fused_assign_pack(torch.rand(9, 2), torch.rand(4, 3, 2), 3,
+                                  words[:1], 0, n_words=1)
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         hist.consensus_hist_counts_kernel(torch.rand(9, 9), 9, 0, 20)
+    with pytest.raises(ValueError, match="CUDA"):
+        popcount.packed_coassoc_counts_kernel(words, words)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_block.fused_assign_pack_kernel(
+            torch.rand(9, 2), torch.rand(4, 3, 2), 3, words[:1], 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_block.assign_labels_kernel(
+            torch.rand(1, 9, 2), torch.zeros(1, dtype=torch.int64),
+            torch.rand(1, 3, 2), 3)
 
 
 def test_lloyd_kernel_layout_limits():
@@ -183,7 +215,14 @@ def test_convert_from_reference_state():
     assert cfg.cluster_batch == 4 and cfg.split_init
     with pytest.raises(NotImplementedError):
         config_from_jax(dataclasses.asdict(
-            JaxConfig(n_samples=50, n_features=3, accum_repr="packed")))
+            JaxConfig(n_samples=50, n_features=3, k_interleave=True)))
+    packed = config_from_jax(dataclasses.asdict(JaxConfig(
+        n_samples=50, n_features=3, n_iterations=9, store_matrices=False,
+        stream_h_block=4, accum_repr="packed", fuse_block="off",
+        adaptive_tol=0.01, adaptive_patience=3, adaptive_min_h=4)))
+    assert (packed.stream_h_block, packed.accum_repr, packed.fuse_block,
+            packed.adaptive_tol, packed.adaptive_patience,
+            packed.adaptive_min_h) == (4, "packed", "off", 0.01, 3, 4)
     km = kmeans_from_jax(dataclasses.asdict(JaxKMeans(n_init=3, tol=1e-3)))
     assert (km.n_init, km.max_iter, km.tol) == (3, 100, 1e-3)
     key = key_from_jax(np.asarray(jax.random.key_data(

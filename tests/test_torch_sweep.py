@@ -111,7 +111,9 @@ def test_api_result_schema(blobs):  # jaxlint: disable=JL018 -- CPU port only, N
     np.testing.assert_array_equal(entry["bin_edges"], np.linspace(0, 1, 21))
     assert cc.best_k_ == 3
     assert cc.areas_.shape == cc.delta_k_.shape == (4,)
-    assert cc.metrics_["kernel_launches"] == {"hist": 0, "lloyd": 0}
+    assert cc.metrics_["kernel_launches"] == {
+        "hist": 0, "lloyd": 0, "popcount": 0, "fused_block": 0, "assign": 0,
+    }
     assert cc.metrics_["device"] == "cpu"
 
 
