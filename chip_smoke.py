@@ -12,6 +12,13 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   card, at the shapes the main paths give it (B1 also at
                   the stream's first and last 256 x 5120 row tiles) and
                   at a ragged shape, with kernel, plain and bound times;
+                  B2 and the final assignment bit for bit against the
+                  plain versions that repeat their arithmetic, on raw
+                  data, also at a wide, a slot-chunked, a shuffled-lanes
+                  and a scalar-layout case.  Every kernel's ``ms`` is
+                  its device time over CUDA-graph replays of its wrapper
+                  (the wrapper's host work, tens of microseconds, not
+                  timed), ``eager_ms`` that of back-to-back calls;
 3. headline     — the dense ``ConsensusClustering.fit`` on make_blobs
                   N=5000 d=50, H=500, K=2..20, KMeans(n_init=3),
                   cluster_batch=16, chunk_size=4, with the kernels' launch
@@ -21,7 +28,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   ``stream_h_block=100, accum_repr="packed",
                   fuse_block="auto"``, counts set to 0 just before: fused
                   on the card, every kernel launched, and per-K hist and
-                  PAC equal to the headline's bit for bit;
+                  PAC equal to the headline's bit for bit.  Both fits'
+                  launch counts and per-K PAC must equal the values
+                  pinned from the kernels before the redesign of B2
+                  and the final assignment (``PINNED_*``);
 5. small        — a small dense fit on the card and on the CPU (plain
                   versions): Iij identical, PAC within 0.02 per K;
 6. stream_small — N=300, H=60, K=2..6, blocks of 16 on the card: streamed
@@ -67,6 +77,27 @@ POPC_PER_S = 16 * 132 * 1.98e9
 HEADLINE = dict(K_range=range(2, 21), n_iterations=500, random_state=23,
                 store_matrices=False, chunk_size=4, cluster_batch=16)
 
+# Pinned from the kernels before the redesign of B2 and the final
+# assignment (commit 5f1b481, run by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W): the launch counts of the headline and the stream, and
+# their per-K PAC (equal in both).  The redesign keeps every bit, so every
+# later run must equal them exactly; a change that moves the bits on
+# purpose re-pins them.
+PINNED_LAUNCHES = {
+    "headline": {"hist": 19, "lloyd": 17287, "popcount": 0,
+                 "fused_block": 0, "assign": 608},
+    "stream": {"hist": 1900, "lloyd": 18541, "popcount": 2000,
+               "fused_block": 95, "assign": 665},
+}
+PINNED_PAC = [
+    0.15632814168930054, 0.14219361543655396, 0.11298960447311401,
+    0.06537121534347534, 0.0448077917098999, 0.015815556049346924, 0.0,
+    0.007634401321411133, 0.0428505539894104, 0.05942767858505249,
+    0.06196880340576172, 0.062322378158569336, 0.062380969524383545,
+    0.06239485740661621, 0.062399327754974365, 0.06239980459213257,
+    0.06239676475524902, 0.062391817569732666, 0.06235170364379883,
+]
+
 FAILURES = []
 
 
@@ -106,6 +137,33 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps):
+    """Mean device milliseconds of one call of a kernel wrapper ``fn``:
+    ``reps`` calls captured in a CUDA graph and replayed, so that the
+    wrapper's host work (tens of microseconds, more than a short kernel
+    takes) is not what is timed, as it is by :func:`cuda_ms`.  The warm
+    call runs on the capture stream, so per-stream state is made outside
+    the graph."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -134,7 +192,8 @@ def phase_env(torch):
     reports = _build.build(KERNELS)
     build_s = time.perf_counter() - t0
     ptxas = {
-        name: [ln.strip() for ln in text.splitlines() if "Used" in ln]
+        name: [ln.strip() for ln in text.splitlines()
+               if "Used" in ln or "spill" in ln or "entry function" in ln]
         for name, text in reports.items()
     }
     emit({"phase": "env", "nvidia_smi": line, "python": sys.version.split()[0],
@@ -189,10 +248,7 @@ def _cij_block(torch, n, seed):
 
 
 def phase_kernels(torch, results):
-    from consensus_clustering_tpu_torch import rng
-    from consensus_clustering_tpu_torch.data import make_blobs
-    from consensus_clustering_tpu_torch.ops import hist, lloyd
-    from consensus_clustering_tpu_torch.ops.resample import resample_indices
+    from consensus_clustering_tpu_torch.ops import hist
 
     n = 5000
     bins = 20
@@ -220,12 +276,16 @@ def phase_kernels(torch, results):
               "shape": list(block.shape), "row_offset": off,
               "n_valid": n_valid, "counted": int(ref.sum()),
               "max_abs_err": err})
-    k_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
+    k_ms = device_ms(torch, lambda: hist.consensus_hist_counts_kernel(
+        cij, n, 0, bins), 20)
+    e_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
         cij, n, 0, bins), 20)
     p_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
         cij, n, 0, bins), 3)
     tile = cij_pad[:tile_r]
-    t_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
+    t_ms = device_ms(torch, lambda: hist.consensus_hist_counts_kernel(
+        tile, n, 0, bins), 50)
+    te_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
         tile, n, 0, bins), 50)
     tp_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
         tile, n, 0, bins), 5)
@@ -242,24 +302,51 @@ def phase_kernels(torch, results):
         "replaces": "consensus_clustering_tpu/ops/pallas_hist.py:47",
         "launches": None, "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [n, n],
+        "library_ms": None, "shape": [n, n], "eager_ms": e_ms,
         "stream_tile": {"shape": [tile_r, n_pad2], "ms": t_ms,
-                        "plain_ms": tp_ms, "bound_ms": tb_ms,
-                        "bound_by": tb_by},
+                        "eager_ms": te_ms, "plain_ms": tp_ms,
+                        "bound_ms": tb_ms, "bound_by": tb_by},
     }
     emit({"phase": "kernels", "kernel": "hist", "timing_shape": [n, n],
-          "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-          "bound_by": b_by, "stream_tile_shape": [tile_r, n_pad2],
-          "stream_tile_ms": t_ms, "stream_tile_plain_ms": tp_ms,
+          "kernel_ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+          "bound_ms": b_ms, "bound_by": b_by,
+          "stream_tile_shape": [tile_r, n_pad2], "stream_tile_ms": t_ms,
+          "stream_tile_eager_ms": te_ms, "stream_tile_plain_ms": tp_ms,
           "stream_tile_bound_ms": tb_ms, "library_ms": None,
           "library_note": "no single PyTorch call computes it: torch.histc "
                           "bins by scaled floor, not by edge membership, "
                           "and takes no triangle mask"})
 
-    # Lloyd: the headline lane batch is 16 resamples x n_init 3 of
-    # 4000 x 50 rows, k_max = 20 — drawn with the port's resample plan.
-    x_np, y_np = make_blobs(n_samples=5000, n_features=50, centers=8,
-                            cluster_std=3.0, random_state=0)
+    kernels_lloyd_assign(torch, results)
+    kernels_popcount(torch, results)
+    kernels_fused(torch, results)
+
+
+def kernels_lloyd_assign(torch, results):
+    """B2 and the final assignment on the same cases, each held bit for bit
+    against the plain version that repeats its arithmetic op by op
+    (``lloyd_step_ordered_plain``, ``assign_labels_plain``), on raw data:
+
+    - the headline lane batch, 16 resamples x n_init 3 of 4000 x 50 rows
+      drawn with the port's resample plan, k = k_max = 20, raw and
+      quantised to 1/8 (where the GEMM plain version must agree exactly
+      too; on raw blobs it agrees to 1e-5 of sum|x|);
+    - a ragged case: n = 1237 (not a multiple of 128), d 37, k 9 < k_max 13;
+    - a wide case: d 300, k_max 40, k 33 (several register groups a row);
+    - a case whose slots are staged in shared-memory chunks: d 401,
+      k_max 60, k 57;
+    - the headline lane batch with lane_src shuffled, so that the lanes a
+      block takes in turn come from different resamples;
+    - a case whose slots only fit unpadded, read one at a time (the
+      scalar layout): d 445, k_max 2, k 2.
+    Timing at the headline lane batch on raw blobs."""
+    from consensus_clustering_tpu_torch import rng
+    from consensus_clustering_tpu_torch.data import make_blobs
+    from consensus_clustering_tpu_torch.ops import fused_block, lloyd
+    from consensus_clustering_tpu_torch.ops.resample import resample_indices
+
+    x_np, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
+                         cluster_std=3.0, random_state=0)
     x_all = torch.tensor(x_np, dtype=torch.float32, device="cuda")
     idx = resample_indices(rng.prng_key(23, "cuda"), 5000, 16, 4000)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -273,40 +360,9 @@ def phase_kernels(torch, results):
         ])
         return src, xs[src[:, None], pick]
 
-    def compare(name, xs, src, cen, k, exact):
-        sk, ck, fk = lloyd.lloyd_step_kernel(xs, src, cen, k)
-        sp, cp, fp = lloyd.lloyd_step_plain(xs, src, cen, k)
-        torch.cuda.synchronize()
-        counts_eq = bool(torch.equal(ck, cp))
-        far_eq = bool(torch.equal(fk, fp))
-        err = float((sk - sp).abs().max())
-        if exact:
-            sums_ok = bool(torch.allclose(sk, sp, rtol=1e-6, atol=0.0))
-        else:
-            # rtol 1e-5 of the sum's own error scale, sum_i |x_i| per entry
-            labels = lloyd.masked_sqdist(xs[src], cen, k).argmin(-1)
-            onehot = torch.nn.functional.one_hot(labels, cen.shape[1])
-            scale = onehot.float().transpose(1, 2) @ xs[src].abs()
-            sums_ok = bool(((sk - sp).abs() <= 1e-5 * scale).all())
-        check(counts_eq, f"lloyd counts != plain ({name})")
-        check(sums_ok, f"lloyd sums != plain ({name}), max abs err {err}")
-        if exact:
-            check(far_eq, f"lloyd far_idx != plain ({name})")
-        emit({"phase": "kernels", "kernel": "lloyd", "case": name,
-              "x": list(xs.shape), "lanes": int(src.shape[0]),
-              "k_max": int(cen.shape[1]), "k": k, "counts_equal": counts_eq,
-              "far_idx_equal": far_eq,
-              "far_idx_mismatches": int((fk != fp).sum()),
-              "sums_max_abs_err": err,
-              "sums_tolerance": "exact (rtol 1e-6)" if exact else
-                                "|err| <= 1e-5 * sum|x| per entry"})
-        return err
-
-    xq = torch.round(x_all[idx] * 8) / 8  # multiples of 1/8: exact sums
-    src, cen = lanes_from(xq, 3, 20)
-    worst = compare("headline quantised", xq, src, cen, 20, True)
     # Raw blobs with 20 well-separated centres, centroids at the centre
-    # means: no label sits near a tie, so labels must agree exactly.
+    # means: no label sits near a tie, so the GEMM plain version's labels
+    # agree too.
     x20_np, y20_np = make_blobs(n_samples=5000, n_features=50, centers=20,
                                 cluster_std=3.0, random_state=1)
     x20 = torch.tensor(x20_np, dtype=torch.float32, device="cuda")
@@ -317,15 +373,82 @@ def phase_kernels(torch, results):
     xr = x20[idx]
     src_r = torch.arange(16, device="cuda").repeat_interleave(3)
     cen_r = means.expand(48, 20, 50).contiguous()
-    worst = max(worst, compare("headline raw blobs", xr, src_r, cen_r, 20,
-                               False))
-    xg = torch.round(torch.randn((5, 1237, 37), generator=g,
-                                 device="cuda") * 24) / 8
-    src_g, cen_g = lanes_from(xg, 2, 13)
-    worst = max(worst, compare("ragged quantised", xg, src_g, cen_g, 9, True))
+    xq = torch.round(x_all[idx] * 8) / 8  # multiples of 1/8: exact sums
+    src_q, cen_q = lanes_from(xq, 3, 20)
+    x_rag = torch.randn((5, 1237, 37), generator=g, device="cuda") * 3
+    src_g, cen_g = lanes_from(x_rag, 2, 13)
+    x_wide = torch.randn((2, 1000, 300), generator=g, device="cuda") * 3
+    src_w, cen_w = lanes_from(x_wide, 2, 40)
+    x_chunk = torch.randn((1, 300, 401), generator=g, device="cuda") * 3
+    src_c, cen_c = lanes_from(x_chunk, 2, 60)
+    x_scalar = torch.randn((2, 300, 445), generator=g, device="cuda") * 3
+    src_s, cen_s = lanes_from(x_scalar, 2, 2)
+    cases = [("headline raw blobs", xr, src_r, cen_r, 20, "band"),
+             ("headline quantised", xq, src_q, cen_q, 20, "exact"),
+             ("ragged raw", x_rag, src_g, cen_g, 9, None),
+             ("ragged quantised", torch.round(x_rag * 8) / 8, src_g,
+              torch.round(cen_g * 8) / 8, 9, "exact"),
+             ("wide raw", x_wide, src_w, cen_w, 33, None),
+             ("smem-chunked raw", x_chunk, src_c, cen_c, 57, None),
+             # A block's 3 lanes from up to 3 resamples: rows restaged.
+             ("headline raw, lanes shuffled", x_all[idx],
+              src_q[torch.randperm(48, generator=g, device="cuda")], cen_q,
+              20, None),
+             ("scalar layout raw", x_scalar, src_s, cen_s, 2, None)]
+    worst_l = worst_a = 0.0
+    for name, xs, src, cen, k, gemm in cases:
+        got = lloyd.lloyd_step_kernel(xs, src, cen, k)
+        ref = lloyd.lloyd_step_ordered_plain(xs, src, cen, k)
+        lab, dmin = fused_block.assign_labels_kernel(xs, src, cen, k)
+        lab_p, dmin_p = fused_block.assign_labels_plain(xs, src, cen, k)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, ref))
+        worst_l = max(worst_l, err)
+        check(all(same), f"lloyd != ordered plain ({name}): sums, counts, "
+                         f"far_idx equal {same}")
+        lab_eq = bool(torch.equal(lab, lab_p))
+        dmin_eq = bool(torch.equal(dmin, dmin_p))
+        worst_a = max(worst_a, float((dmin - dmin_p).abs().max()))
+        check(lab_eq and dmin_eq, f"assign kernel != plain ({name})")
+        layouts = [fused_block.tile_layout(xs.shape[2], cen.shape[1], extra)
+                   for extra in (2 * lloyd.TILE_ROWS, 0)]
+        if name.startswith("scalar"):
+            check(not any(lay[3] for lay in layouts),
+                  f"{name}: not the scalar layout: {layouts}")
+        line = {"phase": "kernels", "kernel": "lloyd+assign", "case": name,
+                "x": list(xs.shape), "lanes": int(src.shape[0]),
+                "k_max": int(cen.shape[1]), "k": k,
+                "layout_lloyd_assign": layouts,
+                "lloyd_equal_ordered_plain": same,
+                "assign_labels_equal": lab_eq, "assign_dmin_equal": dmin_eq}
+        if gemm:
+            sp, cp, fp = lloyd.lloyd_step_plain(xs, src, cen, k)
+            gerr = float((got[0] - sp).abs().max())
+            if gemm == "exact":
+                sums_ok = bool(torch.equal(got[0], sp))
+            else:
+                # |err| <= 1e-5 of the sum's own error scale, sum_i |x_i|
+                labels = lloyd.masked_sqdist(xs[src], cen, k).argmin(-1)
+                onehot = torch.nn.functional.one_hot(labels, cen.shape[1])
+                scale = onehot.float().transpose(1, 2) @ xs[src].abs()
+                sums_ok = bool(((got[0] - sp).abs() <= 1e-5 * scale).all())
+            gemm_ok = (sums_ok and bool(torch.equal(got[1], cp))
+                       and bool(torch.equal(got[2], fp)))
+            check(gemm_ok, f"lloyd != GEMM plain ({name}, {gemm})")
+            line.update(gemm_plain_equal=gemm_ok,
+                        gemm_plain_sums_max_abs_err=gerr,
+                        gemm_plain_tolerance="exact" if gemm == "exact" else
+                        "|err| <= 1e-5 * sum|x| per entry")
+        emit(line)
 
-    k_ms = cuda_ms(torch, lambda: lloyd.lloyd_step_kernel(xr, src_r, cen_r,
-                                                          20), 20)
+    # int32 lane_src, as KMeans passes it: no conversion is timed.
+    src_r = src_r.to(torch.int32)
+    k_ms = device_ms(torch, lambda: lloyd.lloyd_step_kernel(
+        xr, src_r, cen_r, 20), 50)
+    e_ms = cuda_ms(torch, lambda: lloyd.lloyd_step_kernel(xr, src_r, cen_r,
+                                                          20), 50)
     p_ms = cuda_ms(torch, lambda: lloyd.lloyd_step_plain(xr, src_r, cen_r,
                                                          20), 5)
     bsz, rows, d = xr.shape
@@ -338,18 +461,57 @@ def phase_kernels(torch, results):
         "name": "lloyd", "route": "cuda",
         "source": "consensus_clustering_tpu_torch/csrc/lloyd.cu",
         "replaces": "consensus_clustering_tpu/ops/pallas_lloyd.py:54",
-        "launches": None, "max_abs_err": worst, "ms": k_ms,
+        "launches": None, "max_abs_err": worst_l, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [lanes, rows, d, k_max],
+        "redesigned": True, "eager_ms": e_ms,
     }
     emit({"phase": "kernels", "kernel": "lloyd",
           "timing_shape": [lanes, rows, d, k_max], "kernel_ms": k_ms,
-          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "library_ms": None,
+          "eager_ms": e_ms, "plain_ms": p_ms,
+          "bound_ms": b_ms,
+          "bound_by": b_by, "library_ms": None,
           "library_note": "no single PyTorch call computes a fused "
                           "assign + accumulate step"})
-    kernels_popcount(torch, results)
-    kernels_fused(torch, results)
+
+    # The final assignment's timing: the headline's lane batch of the
+    # 8-blob data, centroids drawn from its rows.
+    xs = x_all[idx]
+    src = torch.arange(16, device="cuda",
+                       dtype=torch.int32).repeat_interleave(3)
+    cents = xs[src[:, None], torch.randint(0, 4000, (48, 20), generator=g,
+                                           device="cuda")]
+    got = fused_block.assign_labels_kernel(xs, src, cents, 20)
+    ref = fused_block.assign_labels_plain(xs, src, cents, 20)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])),
+          "assign kernel != plain (timing case)")
+    a_ms = device_ms(torch, lambda: fused_block.assign_labels_kernel(
+        xs, src, cents, 20), 50)
+    ae_ms = cuda_ms(torch, lambda: fused_block.assign_labels_kernel(
+        xs, src, cents, 20), 50)
+    ap_ms = cuda_ms(torch, lambda: fused_block.assign_labels_plain(
+        xs, src, cents, 20), 3)
+    b_ms, b_by = bound_ms(
+        4 * (16 * rows * d + lanes * 20 * d + lanes + 2 * lanes * rows),
+        lanes * rows * (20 * (2 * d + 3) + 2 * d))
+    results["assign"] = {
+        "name": "assign", "route": "cuda",
+        "source": "consensus_clustering_tpu_torch/csrc/fused_block.cu",
+        "replaces": "consensus_clustering_tpu/models/kmeans.py:348 (the "
+                    "final assignment, an XLA GEMM; no Pallas kernel)",
+        "launches": None, "max_abs_err": worst_a,
+        "ms": a_ms, "plain_ms": ap_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": [lanes, rows, d, 20],
+        "redesigned": True, "eager_ms": ae_ms,
+    }
+    emit({"phase": "kernels", "kernel": "assign",
+          "timing_shape": [lanes, rows, d, 20], "kernel_ms": a_ms,
+          "eager_ms": ae_ms, "plain_ms": ap_ms, "bound_ms": b_ms,
+          "bound_by": b_by,
+          "library_ms": None,
+          "library_note": "no single PyTorch call returns nearest labels "
+                          "and distances"})
 
 
 def kernels_popcount(torch, results):
@@ -389,7 +551,9 @@ def kernels_popcount(torch, results):
               "max_abs_err": err})
     rows, cols = cases[0][1], cases[0][2]
     n_words, n_rows, n_cols = rows.shape[0], rows.shape[1], cols.shape[1]
-    k_ms = cuda_ms(torch, lambda: popcount.packed_coassoc_counts_kernel(
+    k_ms = device_ms(torch, lambda: popcount.packed_coassoc_counts_kernel(
+        rows, cols), 50)
+    e_ms = cuda_ms(torch, lambda: popcount.packed_coassoc_counts_kernel(
         rows, cols), 50)
     p_ms = cuda_ms(torch, lambda: popcount_accumulate(rows, cols), 3)
 
@@ -411,12 +575,13 @@ def kernels_popcount(torch, results):
         "replaces": "consensus_clustering_tpu/ops/pallas_coassoc.py:66",
         "launches": None, "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "dense_equiv_ms": d_ms,
+        "library_ms": None, "dense_equiv_ms": d_ms, "eager_ms": e_ms,
         "shape": [n_words, n_rows, n_cols],
     }
     emit({"phase": "kernels", "kernel": "popcount",
           "timing_shape": [n_words, n_rows, n_cols], "kernel_ms": k_ms,
-          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "eager_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+          "bound_by": b_by,
           "bound_rate": "POPC 16/clk/SM x 132 SMs x 1.98 GHz = "
                         f"{POPC_PER_S:.4g}/s; HBM 3.35 TB/s",
           "library_ms": None, "dense_equiv_ms": d_ms,
@@ -426,10 +591,11 @@ def kernels_popcount(torch, results):
 
 
 def kernels_fused(torch, results):
-    """B4 and the final-assignment kernel: at the stream headline's block
-    (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0)
-    and the reference's ragged probe (300 columns, 13 lanes, d 7, k_max 5,
-    2 words, row0 3).  On data quantised to 1/8 the planes equal the plain
+    """B4 at the stream headline's block
+    (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0),
+    the reference's ragged probe (300 columns, 13 lanes, d 7, k_max 5,
+    2 words, row0 3) and a block whose slots only fit unpadded, read one
+    at a time (300 columns, 13 lanes, d 445, k_max 2, 1 word, row0 5).  On data quantised to 1/8 the planes equal the plain
     version; on raw blobs they equal the card's unfused route
     (assign_labels + pack_label_planes) on the same centroids."""
     from consensus_clustering_tpu_torch import rng
@@ -464,10 +630,15 @@ def kernels_fused(torch, results):
 
     x_head = torch.tensor(headline_data(), device="cuda")
     x_rag = torch.randn((300, 7), generator=g, device="cuda") * 3
+    x_scalar = torch.randn((300, 445), generator=g, device="cuda") * 3
+    layout = fused_block.fused_layout(445, 2)
+    check(layout is not None and not layout[2],
+          f"B4 scalar case: not the scalar layout: {layout}")
     worst = 0
     for shape, x, n_cols, lanes, k_max, n_words, row0, ks in (
         ("headline", x_head, 5120, 100, 20, 4, 0, (20, 7)),
         ("ragged probe", x_rag, 300, 13, 5, 2, 3, (4,)),
+        ("scalar layout", x_scalar, 300, 13, 2, 1, 5, (2, 1)),
     ):
         for data in ("quantised", "raw"):
             xs = torch.round(x * 8) / 8 if data == "quantised" else x
@@ -496,7 +667,9 @@ def kernels_fused(torch, results):
                       "nonzero_words": int((got != 0).sum())})
     # Timing at the headline block, raw data, k = 20.
     x_cols, idx, cop, cents = block(x_head, 5120, 100, 20, 4, 0, 100)
-    k_ms = cuda_ms(torch, lambda: fused_block.fused_assign_pack_kernel(
+    k_ms = device_ms(torch, lambda: fused_block.fused_assign_pack_kernel(
+        x_cols, cents, 20, cop, 0, 4), 20)
+    e_ms = cuda_ms(torch, lambda: fused_block.fused_assign_pack_kernel(
         x_cols, cents, 20, cop, 0, 4), 20)
     p_ms = cuda_ms(torch, lambda: fused_block.fused_planes_plain(
         x_cols, cents, 20, cop, 0, 4), 3)
@@ -512,51 +685,15 @@ def kernels_fused(torch, results):
         "launches": None, "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [n_cols, d, 100, 20, 4],
+        "eager_ms": e_ms,
     }
     emit({"phase": "kernels", "kernel": "fused_block",
           "timing_shape": [n_cols, d, 100, 20, 4], "kernel_ms": k_ms,
-          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "eager_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+          "bound_by": b_by,
           "library_ms": None,
           "library_note": "no PyTorch call computes a nearest-centroid "
                           "assignment packed into bit-planes"})
-
-    # The final assignment alone, at the headline's lane batch: 16
-    # resamples x n_init 3 of 4000 x 50 rows, k_max 20.
-    idx16 = resample_indices(rng.prng_key(23, "cuda"), 5000, 16, 4000)
-    xs = x_head[idx16]
-    src = torch.arange(16, device="cuda").repeat_interleave(3)
-    cents = xs[src[:, None], torch.randint(0, 4000, (48, 20), generator=g,
-                                           device="cuda")]
-    got = fused_block.assign_labels_kernel(xs, src, cents, 20)
-    ref = fused_block.assign_labels_plain(xs, src, cents, 20)
-    torch.cuda.synchronize()
-    lab_eq = bool(torch.equal(got[0], ref[0]))
-    dmin_eq = bool(torch.equal(got[1], ref[1]))
-    check(lab_eq and dmin_eq, "assign kernel != plain (headline lanes)")
-    a_ms = cuda_ms(torch, lambda: fused_block.assign_labels_kernel(
-        xs, src, cents, 20), 20)
-    ap_ms = cuda_ms(torch, lambda: fused_block.assign_labels_plain(
-        xs, src, cents, 20), 3)
-    lanes, rows, d = 48, 4000, 50
-    b_ms, b_by = bound_ms(
-        4 * (16 * rows * d + lanes * 20 * d + lanes + 2 * lanes * rows),
-        lanes * rows * (20 * (2 * d + 3) + 2 * d))
-    results["assign"] = {
-        "name": "assign", "route": "cuda",
-        "source": "consensus_clustering_tpu_torch/csrc/fused_block.cu",
-        "replaces": "consensus_clustering_tpu/models/kmeans.py:348 (the "
-                    "final assignment, an XLA GEMM; no Pallas kernel)",
-        "launches": None,
-        "max_abs_err": float((got[1] - ref[1]).abs().max()),
-        "ms": a_ms, "plain_ms": ap_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [lanes, rows, d, 20],
-    }
-    emit({"phase": "kernels", "kernel": "assign",
-          "timing_shape": [lanes, rows, d, 20], "labels_equal": lab_eq,
-          "dmin_equal": dmin_eq, "kernel_ms": a_ms, "plain_ms": ap_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-          "library_note": "no single PyTorch call returns nearest labels "
-                          "and distances"})
 
 
 # -- phases 3 and 4 -----------------------------------------------------
@@ -609,6 +746,15 @@ def _drive(torch, phase, results, **kwargs):
     check(m["kernel_launches"] == launches,
           f"{phase}: metrics_ launch counts differ")
     _pac_checks(phase, ks, pac)
+    same_pac = [float(a) == b for a, b in zip(pac, PINNED_PAC)]
+    emit({"phase": phase, "launches_equal_pinned":
+          launches == PINNED_LAUNCHES[phase],
+          "pac_equal_pinned_per_k": same_pac})
+    check(launches == PINNED_LAUNCHES[phase],
+          f"{phase}: launches {launches} != pinned "
+          f"{PINNED_LAUNCHES[phase]}")
+    check(all(same_pac), f"{phase}: per-K PAC differs from the pinned run "
+                         f"at K={[k for k, e in zip(ks, same_pac) if not e]}")
     for name, n in launches.items():
         if name in results:
             results[name].setdefault("launches_by_phase", {})[phase] = n

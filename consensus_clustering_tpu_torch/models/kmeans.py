@@ -155,9 +155,10 @@ class KMeans:
         bsz, restarts, k_max, d = centroids.shape
         lanes = bsz * restarts
         cen = centroids.reshape(lanes, k_max, d).clone()
-        lane_src = torch.arange(bsz, device=x.device).repeat_interleave(
-            restarts
-        )
+        # int32: the kernel's index type, so no step converts it.
+        lane_src = torch.arange(
+            bsz, dtype=torch.int32, device=x.device
+        ).repeat_interleave(restarts)
         tol_lane = tol_abs[lane_src]
         shift = torch.full((lanes,), float("inf"), dtype=x.dtype, device=x.device)
         iters = torch.zeros(lanes, dtype=torch.int64, device=x.device)
@@ -215,9 +216,9 @@ class KMeans:
         tol_abs = self.tol * x.var(dim=1, correction=0).mean(dim=-1)
         centroids = self._lloyd(x, init_centroids.to(x.dtype), k, tol_abs)
         restarts = centroids.shape[1]
-        lane_src = torch.arange(bsz, device=x.device).repeat_interleave(
-            restarts
-        )
+        lane_src = torch.arange(
+            bsz, dtype=torch.int32, device=x.device
+        ).repeat_interleave(restarts)
         labels, d_min = assign_labels(
             x, lane_src, centroids.reshape(bsz * restarts, k_max, d), k
         )

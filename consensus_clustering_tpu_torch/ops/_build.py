@@ -10,13 +10,14 @@ raises; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -69,11 +70,12 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _nvcc_command(nvcc: str, name: str, out: str) -> List[str]:
+def nvcc_command(nvcc: str, source: str, out: str) -> List[str]:
+    """The command that compiles the .cu file ``source`` into the shared
+    library ``out``."""
     return [
         nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", out, os.path.join(CSRC_DIR, f"{name}.cu"),
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, source,
     ]
 
 
@@ -94,7 +96,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         procs[name] = (tmp, path, subprocess.Popen(
-            _nvcc_command(nvcc, name, tmp),
+            nvcc_command(nvcc, os.path.join(CSRC_DIR, f"{name}.cu"), tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failures = []
@@ -119,3 +121,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _LOADED[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def library_override(name: str, path: str) -> Iterator[ctypes.CDLL]:
+    """Within the context, :func:`load` of ``name`` returns the library
+    at ``path`` (a variant build of ``csrc/<name>.cu``) instead of the
+    checkout's own."""
+    saved = _LOADED.get(name)
+    _LOADED[name] = lib = ctypes.CDLL(path)
+    try:
+        yield lib
+    finally:
+        if saved is None:
+            _LOADED.pop(name, None)
+        else:
+            _LOADED[name] = saved

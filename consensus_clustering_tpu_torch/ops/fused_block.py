@@ -19,7 +19,8 @@ launch the kernels, or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +35,8 @@ TILE = 128
 #: Shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
 MAX_LANES = 65535
+#: Streaming multiprocessors of an H100 SXM.
+H100_SMS = 132
 
 #: Launches of the fused assign+pack kernel (B4) since last set to 0.
 launch_count = 0
@@ -75,32 +78,108 @@ def row_sqdist_plain(
     return torch.where(valid, dist, torch.full_like(dist, float("inf")))
 
 
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tile_layout(d: int, k_max: int, extra_words: int):
+    """The shared-memory layout of a (lane, 128-row tile) block of the
+    Lloyd or the assignment kernel, or None when none fits.
+
+    Returns (xs, ks, cg, vec): the rows' stride (d + 1 for an even d where
+    it fits: an odd stride is free of bank conflicts), the stride of the
+    transposed centroid chunk, the slots per chunk, and whether the chunk
+    is read 4 slots at a time (ks a multiple of 4).  The block holds one
+    chunk ((d + 1) * ks words), the rows (128 * xs) and ``extra_words``.
+    Preference: every slot in one chunk, then chunks of a multiple of 4
+    slots, then (k_max < 4 only) an unpadded chunk read one slot at a time.
+    """
+    maxw = MAX_SMEM_BYTES // 4
+    strides = (d | 1, d) if d % 2 == 0 else (d,)
+    for xs in strides:
+        ks = _round4(k_max)
+        if ks * (d + 1) + TILE * xs + extra_words <= maxw:
+            return xs, ks, k_max, True
+    for xs in strides:
+        cg = (maxw - TILE * xs - extra_words) // (d + 1) // 4 * 4
+        if cg >= 4:
+            return xs, cg, cg, True
+    if k_max * (d + 1) + TILE * d + extra_words <= maxw:
+        return d, k_max, k_max, False
+    return None
+
+
+def lanes_per_block(lanes: int, b: int, n: int) -> int:
+    """Consecutive lanes that one block of the Lloyd or the assignment
+    kernel takes in turn on its 128-row tile.
+
+    ``lanes // b``: with lane_src in runs of a resample's n_init restarts,
+    as KMeans lays it out, a block's lanes share one staged tile.  Any
+    lane_src gives the same results (a block stages its rows again where
+    the resample changes).  1 where sharing would leave fewer than two
+    blocks per SM of an H100.
+    """
+    per = max(1, lanes // b)
+    if per > 1 and -(-n // TILE) * -(-lanes // per) < 2 * H100_SMS:
+        return 1
+    return per
+
+
+def tile_smem_bytes(d: int, k_max: int, extra_words: int) -> int:
+    """The least shared memory a tile block needs: the smallest chunk
+    (min(4, k_max) slots) beside the rows at stride d."""
+    return 4 * (min(4, k_max) * (d + 1) + TILE * d + extra_words)
+
+
 def smem_bytes_assign(d: int, k_max: int) -> int:
-    """Shared memory of one assign block (the layout of the .cu file)."""
-    return 4 * (k_max * d + k_max + TILE * d)
+    """Shared memory an assign block needs at least (the layout of the .cu
+    file with the smallest chunk of slots)."""
+    return tile_smem_bytes(d, k_max, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_layout(d: int, k_max: int):
+    """(xs, ks, vec, lane_group) of a fused block, or None when one lane's
+    centroids do not fit beside the column tile: the row stride and the
+    slot stride as in :func:`tile_layout` (every slot of a lane staged at
+    once), and the lanes (at most 32) staged together."""
+    maxw = MAX_SMEM_BYTES // 4
+    strides = (d | 1, d) if d % 2 == 0 else (d,)
+    for ks, vec in ((_round4(k_max), True), (k_max, False)):
+        for xs in strides:
+            free = maxw - TILE * xs - k_max * TILE
+            group = min(PACK_BITS, free // (ks * (d + 1)))
+            if group >= 1:
+                return xs, ks, vec, group
+    return None
 
 
 def smem_bytes_fused(d: int, k_max: int, lane_group: int) -> int:
-    """Shared memory of one fused block staging ``lane_group`` lanes."""
-    return 4 * (TILE * d + lane_group * k_max * (d + 1) + k_max * TILE)
+    """Shared memory of one fused block staging ``lane_group`` lanes in
+    the layout of :func:`fused_layout` (the unpadded one if none fits)."""
+    layout = fused_layout(d, k_max)
+    xs, ks = (layout[0], layout[1]) if layout else (d, k_max)
+    return 4 * (TILE * xs + lane_group * ks * (d + 1) + k_max * TILE)
 
 
 def lane_group_size(d: int, k_max: int) -> int:
     """Lanes of one plane word (at most 32) whose centroids a fused block
-    stages at once: as many as fit in shared memory."""
-    fixed = smem_bytes_fused(d, k_max, 0)
-    per_lane = 4 * k_max * (d + 1)
-    return max(0, min(PACK_BITS, (MAX_SMEM_BYTES - fixed) // per_lane))
+    stages at once: as many as fit in shared memory, 0 if none does."""
+    layout = fused_layout(d, k_max)
+    return layout[3] if layout else 0
 
 
 def _library():
     lib = _build.load("fused_block")
     if not getattr(lib, "_cc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cc_assign_labels.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+        lib.cc_assign_labels.argtypes = [
+            p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p,
+        ]
         lib.cc_assign_labels.restype = ctypes.c_int
         lib.cc_fused_assign_pack.argtypes = [
-            p, p, i, i, i, i, i, p, i, i, i, p, p,
+            p, p, i, i, i, i, i, i, i, i, p, i, i, i, p, p,
         ]
         lib.cc_fused_assign_pack.restype = ctypes.c_int
         lib.cc_error_string.argtypes = [ctypes.c_int]
@@ -130,9 +209,11 @@ def assign_labels_plain(
 
 
 def assign_labels_kernel(
-    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int,
+    per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``assign_kernel`` of ``csrc/fused_block.cu``."""
+    """Launch ``assign_kernel`` of ``csrc/fused_block.cu``; ``per_block``
+    lanes a block (default :func:`lanes_per_block`)."""
     global assign_launch_count
     if x.device.type != "cuda":
         raise ValueError(
@@ -154,26 +235,30 @@ def assign_labels_kernel(
         raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
     if lanes > MAX_LANES:
         raise ValueError(f"{lanes} lanes exceed the kernel grid's {MAX_LANES}")
-    if smem_bytes_assign(d, k_max) > MAX_SMEM_BYTES:
+    layout = tile_layout(d, k_max, 0)
+    if layout is None:
         raise ValueError(
             f"d={d}, k_max={k_max} need {smem_bytes_assign(d, k_max)} bytes "
             f"of shared memory per block; the kernel's layout holds "
             f"{MAX_SMEM_BYTES}"
         )
+    xs, ks, cg, vec = layout
     x = x.contiguous()
     centroids = centroids.contiguous()
     lane_src = lane_src.to(device=x.device, dtype=torch.int32).contiguous()
-    labels = torch.empty((lanes, n), dtype=torch.int32, device=x.device)
+    labels = torch.empty((lanes, n), dtype=torch.int64, device=x.device)
     dmin = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
     lib = _library()
     status = lib.cc_assign_labels(
-        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes, n, d,
-        k_max, int(k), labels.data_ptr(), dmin.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
+        per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
+        ks, cg,
+        int(vec), labels.data_ptr(),
+        dmin.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_status(lib, status, "assignment")
     assign_launch_count += 1
-    return labels.long(), dmin
+    return labels, dmin
 
 
 def assign_labels(
@@ -264,8 +349,8 @@ def fused_assign_pack_kernel(
         )
     if not 1 <= k <= k_max:
         raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
-    group = lane_group_size(d, k_max)
-    if group < 1:
+    layout = fused_layout(d, k_max)
+    if layout is None:
         raise ValueError(
             f"d={d}, k_max={k_max}: one lane's centroids do not fit the "
             f"kernel's {MAX_SMEM_BYTES} bytes of shared memory"
@@ -273,13 +358,14 @@ def fused_assign_pack_kernel(
     x_cols = x_cols.contiguous()
     centroids = centroids.contiguous()
     coplanes = coplanes.contiguous()
+    xs, ks, vec, group = layout
     planes = torch.empty((k_max, n_words, n_cols), dtype=torch.int32,
                          device=x_cols.device)
     lib = _library()
     status = lib.cc_fused_assign_pack(
         x_cols.data_ptr(), centroids.data_ptr(), n_lanes, n_cols, d, k_max,
-        int(k), coplanes.data_ptr(), int(row0), n_words, group,
-        planes.data_ptr(),
+        int(k), xs, ks, int(vec), coplanes.data_ptr(), int(row0), n_words,
+        group, planes.data_ptr(),
         torch.cuda.current_stream(x_cols.device).cuda_stream,
     )
     _check_status(lib, status, "fused assign+pack")

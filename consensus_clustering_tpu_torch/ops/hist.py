@@ -13,6 +13,7 @@ CUDA tensor it launches the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,6 +47,12 @@ def consensus_hist_counts_plain(
     return masked_histogram_counts(cij, mask, bins)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_edges(bins: int, device: torch.device) -> torch.Tensor:
+    """The bins' edges on ``device``, copied there once, not per launch."""
+    return torch.tensor(hist_edges(bins), device=device)
+
+
 def _library():
     lib = _build.load("hist")
     if not getattr(lib, "_cc_typed", False):
@@ -73,7 +80,7 @@ def consensus_hist_counts_kernel(
             f"cij must be a 2-D float32 tensor, got {cij.dtype} {tuple(cij.shape)}"
         )
     cij = cij.contiguous()
-    edges = torch.tensor(hist_edges(bins), device=cij.device)
+    edges = _device_edges(bins, cij.device)
     out = torch.zeros(bins, dtype=torch.int32, device=cij.device)
     lib = _library()
     status = lib.cc_hist_counts(

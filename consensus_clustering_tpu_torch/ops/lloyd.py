@@ -17,26 +17,36 @@ the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from consensus_clustering_tpu_torch.ops import _build
+from consensus_clustering_tpu_torch.ops.fused_block import (
+    lanes_per_block,
+    row_sqdist_plain,
+    tile_layout,
+    tile_smem_bytes,
+)
 
-#: Rows per block of the kernel (CC_LLOYD_TILE in csrc/lloyd.cu).
+#: Rows per block of the kernel, and of a partial sum (CC_TILE).
 TILE_ROWS = 128
 #: Shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
 MAX_LANES = 65535
+#: Words of a block beside the rows and the centroid chunk: the tile's
+#: min-distances and labels.
+_EXTRA_WORDS = 2 * TILE_ROWS
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0 (a step's tile kernel
+#: and its reduction count as one).
 launch_count = 0
 
 
 def smem_bytes(d: int, k_max: int) -> int:
-    """Shared memory of one block: centroids and norms, an x tile, and the
-    tile's min-distances and labels (the layout of csrc/lloyd.cu)."""
-    return 4 * (k_max * d + k_max + TILE_ROWS * d + TILE_ROWS) + 4 * TILE_ROWS
+    """The least shared memory one block needs (csrc/lloyd.cu with the
+    smallest chunk of centroid slots); a larger k_max is chunked."""
+    return tile_smem_bytes(d, k_max, _EXTRA_WORDS)
 
 
 def pairwise_sqdist(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -95,12 +105,51 @@ def lloyd_step_plain(
     return sums, counts, far_idx
 
 
+def lloyd_step_ordered_plain(
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic, op by op: the plain version the kernel
+    equals bit for bit on any data.
+
+    Distances by :func:`.fused_block.row_sqdist_plain` (d summed in
+    ascending order, every product and sum rounded on its own); a slot's
+    partial sum over each 128-row tile taken as 128 ascending elementwise
+    steps from 0.0; the tiles summed in ascending order from 0.0; the far
+    points by :func:`bucket_far_points`.  Adding 0.0 for a row of another
+    slot leaves a partial sum as it was, so the steps are the kernel's
+    adds.  Nothing on the main path calls it.
+    """
+    lanes = lane_src.shape[0]
+    _, n, d = x.shape
+    k_max = centroids.shape[1]
+    xl = x[lane_src.long()]
+    best = row_sqdist_plain(xl, centroids, k).min(dim=-1)
+    labels, d_min = best.indices, best.values
+    n_tiles = -(-n // TILE_ROWS)
+    pad = n_tiles * TILE_ROWS - n
+    rows = torch.cat([xl, torch.ones_like(xl[..., :1])], dim=-1)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    rows = rows.reshape(lanes, n_tiles, TILE_ROWS, 1, d + 1)
+    hit = (labels.reshape(lanes, n_tiles, TILE_ROWS, 1)
+           == torch.arange(k_max, device=x.device))[..., None]
+    part = torch.zeros((lanes, n_tiles, k_max, d + 1), dtype=x.dtype,
+                       device=x.device)
+    for r in range(TILE_ROWS):
+        part = part + torch.where(hit[:, :, r], rows[:, :, r], 0.0)
+    total = torch.zeros((lanes, k_max, d + 1), dtype=x.dtype,
+                        device=x.device)
+    for t in range(n_tiles):
+        total = total + part[:, t]
+    return total[..., :d], total[..., d], bucket_far_points(d_min, k_max)
+
+
 def _library():
     lib = _build.load("lloyd")
     if not getattr(lib, "_cc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cc_lloyd_step.argtypes = [
-            p, p, p, i, i, i, i, i, p, p, p, p, p, p, p,
+            p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p,
         ]
         lib.cc_lloyd_step.restype = ctypes.c_int
         lib.cc_error_string.argtypes = [ctypes.c_int]
@@ -110,9 +159,11 @@ def _library():
 
 
 def lloyd_step_kernel(
-    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int
+    x: torch.Tensor, lane_src: torch.Tensor, centroids: torch.Tensor, k: int,
+    per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/lloyd.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/lloyd.cu`` on PyTorch's current stream; ``per_block``
+    lanes a block (default :func:`.fused_block.lanes_per_block`)."""
     global launch_count
     if x.device.type != "cuda":
         raise ValueError(f"the Lloyd kernel needs CUDA tensors, got {x.device}")
@@ -132,38 +183,44 @@ def lloyd_step_kernel(
         raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
     if lanes > MAX_LANES:
         raise ValueError(f"{lanes} lanes exceed the kernel grid's {MAX_LANES}")
-    if smem_bytes(d, k_max) > MAX_SMEM_BYTES:
+    layout = tile_layout(d, k_max, _EXTRA_WORDS)
+    if layout is None:
         raise ValueError(
             f"d={d}, k_max={k_max} need {smem_bytes(d, k_max)} bytes of "
             f"shared memory per block; the kernel's layout holds "
             f"{MAX_SMEM_BYTES}"
         )
+    xs, ks, cg, vec = layout
     x = x.contiguous()
     centroids = centroids.contiguous()
     lane_src = lane_src.to(device=x.device, dtype=torch.int32).contiguous()
     n_tiles = -(-n // TILE_ROWS)
     dev = x.device
-    part_sums = torch.empty(
-        (lanes, n_tiles, k_max, d + 1), dtype=torch.float32, device=dev
-    )
-    part_fval = torch.empty((lanes, n_tiles, k_max), dtype=torch.float32, device=dev)
-    part_fidx = torch.empty((lanes, n_tiles, k_max), dtype=torch.int32, device=dev)
+    # One scratch buffer: partial sums, then the far values and rows.
+    part_words = lanes * n_tiles * k_max
+    scratch = torch.empty(part_words * (d + 3), dtype=torch.float32,
+                          device=dev)
+    part_sums = scratch.data_ptr()
+    part_fval = part_sums + 4 * part_words * (d + 1)
+    part_fidx = part_fval + 4 * part_words
     sums = torch.empty((lanes, k_max, d), dtype=torch.float32, device=dev)
     counts = torch.empty((lanes, k_max), dtype=torch.float32, device=dev)
-    far_idx = torch.empty((lanes, k_max), dtype=torch.int32, device=dev)
+    far_idx = torch.empty((lanes, k_max), dtype=torch.int64, device=dev)
     lib = _library()
     status = lib.cc_lloyd_step(
-        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes, n,
-        d, k_max, int(k), part_sums.data_ptr(), part_fval.data_ptr(),
-        part_fidx.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        far_idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
+        per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
+        ks, cg,
+        int(vec), part_sums, part_fval, part_fidx, sums.data_ptr(),
+        counts.data_ptr(), far_idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if status != 0:
         raise RuntimeError(
             f"Lloyd kernel launch failed: {lib.cc_error_string(status).decode()}"
         )
     launch_count += 1
-    return sums, counts, far_idx.long()
+    return sums, counts, far_idx
 
 
 def lloyd_step(

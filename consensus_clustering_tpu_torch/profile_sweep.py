@@ -13,7 +13,9 @@ clustering, packing (B4) and evaluation (B3, Cij, B1):
 2. over ``--ks``, with each stage of the sweep wrapped, from here, in a
    timer that synchronises the device before and after (the library
    carries no instrumentation), for the wall seconds of every stage
-   (inclusive: ``cluster`` holds its ``cluster/*`` parts);
+   (inclusive: ``cluster`` holds its ``cluster/*`` parts), and the
+   Lloyd steps counted by their active lanes and by the lanes a block of
+   B2 takes (``lloyd_lanes``);
 3. for the single K ``--profile-k``, plain and then under
    ``torch.profiler``, for the device time of every kernel and the
    device idle share, 1 - (summed kernel time) / (plain wall clock): the
@@ -46,6 +48,7 @@ from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.data import make_blobs
 from consensus_clustering_tpu_torch.models import kmeans
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.ops.fused_block import lanes_per_block
 from consensus_clustering_tpu_torch.parallel import streaming, sweep
 from consensus_clustering_tpu_torch.parallel.streaming import (
     run_streaming_sweep,
@@ -89,9 +92,11 @@ _KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
 
 
 def _kernel_class(name: str) -> str:
+    # A template kernel's name starts with its return type: "void f<...>(".
+    bare = name[len("void "):] if name.startswith("void ") else name
     for prefix in _KERNEL_PREFIXES:
-        if name.startswith(prefix):
-            return name.split("(")[0]
+        if bare.startswith(prefix):
+            return bare.split("(")[0].split("<")[0]
     lowered = name.lower()
     if "gemm" in lowered or "cutlass" in lowered or "xmma" in lowered:
         return "cublas gemm"
@@ -107,8 +112,13 @@ def _self_device_us(event) -> float:
 
 
 def _timed_stages(km, config, x, run, stages):
+    """Stage seconds and calls of one run, and the Lloyd steps' lanes:
+    how many steps ran each number of active lanes, and the steps and
+    seconds at each lanes-per-block of B2's grid."""
     seconds = collections.defaultdict(float)
     calls = collections.Counter()
+    lanes_hist = collections.Counter()
+    per_block = collections.defaultdict(lambda: [0, 0.0])
     originals = [(m, a, getattr(m, a)) for m, a, _ in stages]
 
     def timed(fn, name):
@@ -118,8 +128,17 @@ def _timed_stages(km, config, x, run, stages):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            seconds[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            seconds[name] += dt
             calls[name] += 1
+            if name == "cluster/lloyd_step":
+                xs, lane_src = args[0], args[1]
+                lanes = int(lane_src.shape[0])
+                lanes_hist[lanes] += 1
+                entry = per_block[lanes_per_block(lanes, xs.shape[0],
+                                                  xs.shape[1])]
+                entry[0] += 1
+                entry[1] += dt
             return out
         return wrapper
 
@@ -130,8 +149,15 @@ def _timed_stages(km, config, x, run, stages):
     finally:
         for module, attr, fn in originals:
             setattr(module, attr, fn)
+    lloyd_lanes = {
+        "steps_by_active_lanes": dict(sorted(lanes_hist.items())),
+        "by_lanes_per_block": {
+            p: {"steps": v[0], "seconds": v[1]}
+            for p, v in sorted(per_block.items())
+        },
+    }
     return wall, {n: {"calls": calls[n], "seconds": seconds[n]}
-                  for _, _, n in stages}
+                  for _, _, n in stages}, lloyd_lanes
 
 
 def _ab(km, config, x, h_block):
@@ -201,7 +227,8 @@ def main(argv=None):
     smi = _smi()
     print(smi, flush=True)
     plain = run(km, config, x, 23)["timing"]
-    timed_wall, stages = _timed_stages(km, config, x, run, _STAGES[engine])
+    timed_wall, stages, lloyd_lanes = _timed_stages(km, config, x, run,
+                                                    _STAGES[engine])
     print(json.dumps({
         "profile": f"headline stages ({engine})", "k_values": list(ks),
         "h": args.h, "stream_h_block": args.stream,
@@ -211,6 +238,7 @@ def main(argv=None):
         "launches": plain["kernel_launches"],
         "timed_run_seconds": timed_wall,
         "stage_seconds": stages,
+        "lloyd_lanes": lloyd_lanes,
     }, default=float), flush=True)
 
     one_k = dataclasses.replace(config, k_values=(args.profile_k,))

@@ -56,6 +56,82 @@ def test_lloyd_kernel_equals_plain_on_quantised_data(cuda, b, n, d, n_init,
         assert torch.equal(a, r.to(a.dtype))
 
 
+_RAW_SHAPES = [(4, 1000, 50, 3, 20, 20),    # lanes share a staged tile
+               (5, 1237, 37, 2, 13, 9),     # ragged n, k < k_max
+               (2, 1000, 300, 2, 40, 33)]   # wide: several slot groups
+
+
+def _raw_lanes(cuda, b, n, d, n_init, k_max):
+    g = torch.Generator(device=cuda).manual_seed(b * n + d)
+    x = torch.randn((b, n, d), generator=g, device=cuda) * 3
+    src = torch.arange(b, device=cuda,
+                       dtype=torch.int32).repeat_interleave(n_init)
+    pick = torch.randint(0, n, (b * n_init, k_max), generator=g, device=cuda)
+    return x, src, x[src.long()[:, None], pick]
+
+
+@pytest.mark.parametrize("b,n,d,n_init,k_max,k", _RAW_SHAPES)
+def test_lloyd_kernel_equals_ordered_plain_on_raw_data(cuda, b, n, d, n_init,
+                                                       k_max, k):
+    x, src, cen = _raw_lanes(cuda, b, n, d, n_init, k_max)
+    got = lloyd.lloyd_step_kernel(x, src, cen, k)
+    ref = lloyd.lloyd_step_ordered_plain(x, src, cen, k)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("b,n,d,n_init,k_max,k", _RAW_SHAPES)
+def test_assign_kernel_equals_plain_on_raw_data(cuda, b, n, d, n_init, k_max,
+                                                k):
+    x, src, cen = _raw_lanes(cuda, b, n, d, n_init, k_max)
+    got = fused_block.assign_labels_kernel(x, src, cen, k)
+    ref = fused_block.assign_labels_plain(x, src, cen, k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_scalar_layout_kernels_equal_plain_on_raw_data(cuda):
+    # d 445, k_max 2: the slots fit only unpadded, read one at a time.
+    b, n, d, n_init, k_max, k = 2, 300, 445, 2, 2, 2
+    for extra in (2 * lloyd.TILE_ROWS, 0):  # B2's layout, the assignment's
+        assert not fused_block.tile_layout(d, k_max, extra)[3]
+    x, src, cen = _raw_lanes(cuda, b, n, d, n_init, k_max)
+    got = lloyd.lloyd_step_kernel(x, src, cen, k)
+    ref = lloyd.lloyd_step_ordered_plain(x, src, cen, k)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    lab, dmin = fused_block.assign_labels_kernel(x, src, cen, k)
+    lab_p, dmin_p = fused_block.assign_labels_plain(x, src, cen, k)
+    assert torch.equal(lab, lab_p) and torch.equal(dmin, dmin_p)
+
+
+# A small KMeans fit on the card, pinned from the kernels before the
+# redesign of B2 and the final assignment: the same launches and labels.
+_PINNED_FIT_LABELS = (
+    "1320221101030001031223101311000203103002222232110311101330223122131032"
+    "0002113100310212013100221100122003220122220122222130031203311332302000"
+    "3010213333222230332121302303020301032303133201132322130021033121300201"
+    "2333023101030003331330030323300333212100231112312330031212110310030310"
+    "22210121311332202223"
+)
+
+
+def test_kmeans_fit_equals_pinned_result(cuda):
+    from consensus_clustering_tpu_torch import make_blobs
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+
+    x, _ = make_blobs(n_samples=300, n_features=6, centers=4,
+                      cluster_std=2.5, random_state=11)
+    x = torch.tensor(x, dtype=torch.float32, device=cuda)
+    keys = torch.tensor([[0, 1], [0, 2]], device=cuda)
+    lloyd.launch_count = 0
+    fused_block.assign_launch_count = 0
+    labels, cen = KMeans(n_init=2).fit(keys, torch.stack([x[:150], x[150:]]),
+                                       4, 6)
+    assert (lloyd.launch_count, fused_block.assign_launch_count) == (6, 1)
+    assert "".join(map(str, labels.flatten().tolist())) == _PINNED_FIT_LABELS
+    assert float(cen.double().sum()) == -42.99229456484318
+
+
 def test_small_fit_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
     from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
 
@@ -89,7 +165,9 @@ def test_popcount_kernel_equals_plain(cuda, l_words, r, c, col0):
 
 @pytest.mark.parametrize("n_cols,d,lanes,k_max,k,n_words,row0",
                          [(5120, 50, 100, 20, 7, 4, 0),
-                          (300, 7, 13, 5, 4, 2, 3)])
+                          (300, 7, 13, 5, 4, 2, 3),
+                          # slots that fit only unpadded: the scalar layout
+                          (300, 445, 13, 2, 2, 1, 5)])
 def test_fused_kernel_equals_plain_and_unfused(cuda, n_cols, d, lanes, k_max,
                                                k, n_words, row0):
     g = torch.Generator(device=cuda).manual_seed(n_cols)

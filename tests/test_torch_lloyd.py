@@ -4,6 +4,10 @@
   in interpret mode.  Counts and far-point indices exact; sums to rtol
   1e-5, and exact on data quantised to multiples of 1/8, where every sum is
   representable.
+- The ordered plain version (the CUDA kernel's arithmetic op by op): exact
+  against the reference kernel on quantised data; on raw data its counts
+  and far points follow the final assignment's labels exactly, and its
+  sums are within 1e-5 of the GEMM plain version's.
 - KMeans in float64 from injected init centroids: labels identical.  The
   reference's float64 path needs ``JAX_ENABLE_X64`` before JAX starts, so
   it runs in a subprocess (as tests/test_parity.py does for its GMM).
@@ -31,7 +35,7 @@ from consensus_clustering_tpu.ops.pallas_lloyd import (
 from consensus_clustering_tpu_torch.convert import key_from_jax
 from consensus_clustering_tpu_torch.data import make_blobs
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
-from consensus_clustering_tpu_torch.ops import lloyd
+from consensus_clustering_tpu_torch.ops import fused_block, lloyd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,6 +89,91 @@ def test_lloyd_step_lanes_share_resamples():
         np.testing.assert_array_equal(far[lane].numpy(), ref[2])
         np.testing.assert_allclose(sums[lane].numpy(), ref[0], rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "n,d,k_max,k",
+    [(300, 7, 8, 5), (650, 13, 12, 9), (129, 50, 20, 20), (57, 4, 10, 6)],
+)
+def test_ordered_plain_equals_reference_kernel_on_quantised_data(n, d, k_max,
+                                                                 k):
+    # n not a multiple of 128 (ragged last tile), k < k_max in three cases.
+    rs = np.random.default_rng(10 * n + d)
+    x = (np.round(rs.normal(size=(n, d)) * 16) / 8).astype(np.float32)
+    c = x[rs.choice(n, size=k_max, replace=n < k_max)]
+    ref_sums, ref_counts, ref_far = _jax_step(x, c, k)
+    sums, counts, far = lloyd.lloyd_step_ordered_plain(
+        torch.tensor(x)[None], torch.zeros(1, dtype=torch.int32),
+        torch.tensor(c)[None], k,
+    )
+    np.testing.assert_array_equal(sums[0].numpy(), ref_sums)
+    np.testing.assert_array_equal(counts[0].numpy(), ref_counts)
+    np.testing.assert_array_equal(far[0].numpy(), ref_far)
+
+
+def _raw_lanes(seed, b, n, d, n_init, k_max):
+    rs = np.random.default_rng(seed)
+    x = torch.tensor(rs.normal(size=(b, n, d)).astype(np.float32) * 3)
+    src = torch.arange(b, dtype=torch.int32).repeat_interleave(n_init)
+    pick = torch.tensor(rs.integers(0, n, size=(b * n_init, k_max)))
+    return x, src, x[src.long()[:, None], pick]
+
+
+@pytest.mark.parametrize("b,n,d,n_init,k_max,k", [(2, 300, 50, 3, 20, 20),
+                                                  (3, 257, 9, 2, 13, 9),
+                                                  (1, 140, 300, 2, 40, 33)])
+def test_ordered_plain_counts_and_far_points_follow_assign_labels(
+        b, n, d, n_init, k_max, k):
+    # Raw data: counts and far points are those of the final assignment's
+    # own labels and min-distances (the same op-by-op distances).
+    x, src, cen = _raw_lanes(b * n + d, b, n, d, n_init, k_max)
+    _, counts, far = lloyd.lloyd_step_ordered_plain(x, src, cen, k)
+    labels, d_min = fused_block.assign_labels_plain(x, src, cen, k)
+    onehot = torch.nn.functional.one_hot(labels, k_max)
+    assert torch.equal(counts, onehot.sum(dim=1).to(counts.dtype))
+    assert torch.equal(far, lloyd.bucket_far_points(d_min, k_max))
+
+
+@pytest.mark.parametrize("seed,k", [(1, 8), (2, 5), (3, 12)])
+def test_ordered_plain_sums_match_gemm_plain_version(seed, k):
+    # Raw well-separated blobs, centroids at the centres: no label near a
+    # tie, so only the order of the sums differs from the GEMM's.
+    x, y = make_blobs(n_samples=700, n_features=11, centers=k,
+                      cluster_std=1.0, random_state=seed)
+    means = np.stack([x[y == j].mean(axis=0) for j in range(k)])
+    xt = torch.tensor(x, dtype=torch.float32)[None]
+    cen = torch.tensor(np.concatenate([means, means[:2] + 50.0]),
+                       dtype=torch.float32)[None].repeat(2, 1, 1)
+    src = torch.zeros(2, dtype=torch.int32)
+    got = lloyd.lloyd_step_ordered_plain(xt, src, cen, k)
+    ref = lloyd.lloyd_step_plain(xt, src, cen, k)
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("lanes,b,n,expected", [
+    (48, 16, 4000, 3),   # the headline: a resample's 3 restarts share
+    (40, 16, 4000, 2),   # converged lanes dropped out: 2 a block
+    (5, 16, 4000, 1),    # fewer lanes than resamples
+    (48, 16, 300, 1),    # 3 tiles x 16 blocks would underfill the card
+])
+def test_lanes_per_block(lanes, b, n, expected):
+    assert fused_block.lanes_per_block(lanes, b, n) == expected
+
+
+@pytest.mark.parametrize("d,k_max,vec,fused_vec", [
+    (50, 20, True, True),     # the headline: 16-byte slot groups
+    (401, 60, True, None),    # B2 and assign chunk the slots; B4 refuses
+    (445, 2, False, False),   # 4 padded slots do not fit: unpadded slots
+])
+def test_layouts_fall_back_to_unpadded_slots_only_where_padding_does_not_fit(
+        d, k_max, vec, fused_vec):
+    for extra in (2 * lloyd.TILE_ROWS, 0):  # B2's layout, the assignment's
+        assert fused_block.tile_layout(d, k_max, extra)[3] is vec
+    fused = fused_block.fused_layout(d, k_max)
+    assert (fused and fused[2]) is fused_vec
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
