@@ -9,9 +9,11 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   sources from csrc/ (one nvcc per source, started
                   together);
 2. kernels      — each kernel against its plain PyTorch version on the
-                  card, at the shapes the main paths give it (B1 also at
-                  the stream's first and last 256 x 5120 row tiles) and
-                  at a ragged shape, with kernel, plain and bound times;
+                  card, at the shapes the main paths give it and at a
+                  ragged shape, with kernel, plain and bound times; B1's
+                  Cij and count entries also at the stream's first and
+                  last 256 x 5120 row tiles, a bimodal Cij (as at the
+                  headline's K = 8) and values beside every bin edge;
                   B2 and the final assignment bit for bit against the
                   plain versions that repeat their arithmetic, on raw
                   data, also at a wide, a slot-chunked, a shuffled-lanes
@@ -232,94 +234,189 @@ def check_matmul_precision(torch):
 # -- phase 2 -------------------------------------------------------------
 
 
-def _cij_block(torch, n, seed):
-    """A realistic (N, N) Cij: integer Mij <= Iij <= H=500, a band of exact
-    bin-edge ratios (6/40 = 0.15 and the like), diagonal 1."""
+def count_tiles(torch, n_rows, n_cols, seed, kind):
+    """int32 (Mij, Iij) of an (n_rows, n_cols) block, Iij in [1, 500]
+    (H = 500), torch only (kernel_phases.py builds them for any checkout):
+
+    - ``uniform``: Mij = floor(Iij * U[0, 1)), so Cij spreads over every
+      bin, with a band of exact bin-edge ratios (6/40 = 0.15 and the like)
+      in the first 40 columns;
+    - ``bimodal``: a consensus matrix at the data's true K (the headline's
+      K = 8, PAC 0): 80% of pairs never co-clustered (bin 0), 12% always
+      (Cij = 0.999999..., bin 19), 4% each in [0, 0.1) and [0.9, 1];
+    - ``edges``: ratios on and beside every edge of 20 bins, Iij a
+      multiple of 20 and Mij = Iij * b / 20 + {-1, 0, 1}.
+    """
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n_rows, n_cols)
+    iij = torch.randint(1, 501, shape, generator=g, device="cuda")
+    if kind == "uniform":
+        frac = torch.rand(shape, generator=g, device="cuda")
+        mij = torch.floor(iij * frac)
+        iij[:, :40] = 40
+        mij[:, :40] = torch.arange(40, device="cuda") % 41
+    elif kind == "bimodal":
+        u = torch.rand(shape, generator=g, device="cuda")
+        r = torch.rand(shape, generator=g, device="cuda")
+        low = torch.floor(iij * 0.1 * r)
+        high = torch.minimum(torch.ceil(iij * (0.9 + 0.1 * r)), iij)
+        mij = torch.where(u < 0.8, torch.zeros_like(low), torch.where(
+            u < 0.92, iij.to(low.dtype), torch.where(u < 0.96, low, high)))
+    elif kind == "edges":
+        iij = (iij % 25 + 1) * 20
+        b = torch.randint(0, 21, shape, generator=g, device="cuda")
+        step = torch.randint(-1, 2, shape, generator=g, device="cuda")
+        mij = torch.clamp(iij // 20 * b + step, 0)
+        mij = torch.minimum(mij, iij)
+    else:
+        raise ValueError(kind)
+    return mij.to(torch.int32), iij.to(torch.int32)
+
+
+def edge_values(torch, bins):
+    """Every f32 bin edge and its two neighbours on each side, tiled into
+    a (64, 4096) Cij block."""
+    edges = np.linspace(0.0, 1.0, bins + 1).astype(np.float32)
+    vals = []
+    for e in edges:
+        lo = hi = e
+        vals.append(e)
+        for _ in range(2):
+            lo = np.nextafter(lo, np.float32(-1))
+            hi = np.nextafter(hi, np.float32(2))
+            vals += [lo, hi]
+    v = torch.tensor(np.array(vals, np.float32), device="cuda")
+    return v.repeat(64 * 4096 // v.numel() + 1)[:64 * 4096].reshape(64, 4096)
+
+
+def _cij_block(torch, n, seed, kind="uniform"):
+    """(Mij, Iij, Cij) of an (N, N) block of :func:`count_tiles`."""
     from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    iij = torch.randint(1, 501, (n, n), generator=g, device="cuda")
-    frac = torch.rand((n, n), generator=g, device="cuda")
-    mij = torch.floor(iij * frac).to(torch.int32)
-    edge_cols = slice(0, 40)
-    iij[:, edge_cols] = 40
-    mij[:, edge_cols] = torch.arange(40, device="cuda", dtype=torch.int32) % 41
-    return consensus_matrix(mij, iij.to(torch.int32))
+    mij, iij = count_tiles(torch, n, n, seed, kind)
+    return mij, iij, consensus_matrix(mij, iij)
 
 
 def phase_kernels(torch, results):
+    kernels_hist(torch, results)
+    kernels_lloyd_assign(torch, results)
+    kernels_popcount(torch, results)
+    kernels_fused(torch, results)
+
+
+def kernels_hist(torch, results):
+    """B1's two entries, each held bit for bit against its plain version:
+    the Cij entry (the dense sweep's) and the count entry (the stream's
+    evaluation: int32 Mij and Iij tiles, Cij formed in registers), at the
+    full 5000 x 5000 matrix, a ragged row block, the stream's first and
+    last 256 x 5120 row tiles (N = 5000: the last tile's rows 5000-5119
+    and every tile's columns >= 5000 lie past N, random here, not zero,
+    and must be dropped), a bimodal matrix as at the headline's K = 8, and
+    ratios on and beside every bin edge (the Cij entry: every f32 edge
+    and its two neighbours on each side).  Timed on the uniform and the
+    bimodal matrix and tile."""
     from consensus_clustering_tpu_torch.ops import hist
 
-    n = 5000
-    bins = 20
-    cij = _cij_block(torch, n, seed=0)
-    # The stream's evaluation tiles: 256-row slices of a Cij over the
-    # 5120 padded columns, N = 5000.  The last tile's rows 5000-5119 and
-    # every tile's columns >= 5000 lie past N (random here, not zero) and
-    # must be dropped.
-    tile_r, n_pad2 = 256, 5120
-    cij_pad = _cij_block(torch, n_pad2, seed=1)
-    cases = [("full", cij, n, 0), ("ragged", cij[1234:2011], 4990, 1234),
-             ("stream tile 0", cij_pad[:tile_r], n, 0),
-             ("stream tile 19", cij_pad[n_pad2 - tile_r:], n,
-              n_pad2 - tile_r)]
+    n, bins, tile_r, n_pad2 = 5000, 20, 256, 5120
+    counts = {kind: _cij_block(torch, n, 0, kind)
+              for kind in ("uniform", "bimodal", "edges")}
+    pad = {kind: _cij_block(torch, n_pad2, 1, kind)
+           for kind in ("uniform", "bimodal")}
+    edge_cij = edge_values(torch, bins)
+    rows = [("full", counts["uniform"], slice(None), n, 0),
+            ("ragged", counts["uniform"], slice(1234, 2011), 4990, 1234),
+            ("stream tile 0", pad["uniform"], slice(0, tile_r), n, 0),
+            ("stream tile 19", pad["uniform"], slice(n_pad2 - tile_r, None),
+             n, n_pad2 - tile_r),
+            ("bimodal", counts["bimodal"], slice(None), n, 0),
+            ("bimodal stream tile 0", pad["bimodal"], slice(0, tile_r), n, 0),
+            ("edge ratios", counts["edges"], slice(None), n, 0)]
     worst = 0
-    for name, block, n_valid, off in cases:
-        got = hist.consensus_hist_counts_kernel(block, n_valid, off, bins)
-        ref = hist.consensus_hist_counts_plain(block, n_valid, off, bins)
+
+    def held(entry, name, got, ref, **line):
+        nonlocal worst
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
         worst = max(worst, err)
-        check(err == 0, f"hist kernel != plain ({name}): {got.tolist()} vs "
+        check(err == 0, f"hist {entry} != plain ({name}): {got.tolist()} vs "
                         f"{ref.tolist()}")
-        emit({"phase": "kernels", "kernel": "hist", "case": name,
-              "shape": list(block.shape), "row_offset": off,
-              "n_valid": n_valid, "counted": int(ref.sum()),
-              "max_abs_err": err})
-    k_ms = device_ms(torch, lambda: hist.consensus_hist_counts_kernel(
-        cij, n, 0, bins), 20)
-    e_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
-        cij, n, 0, bins), 20)
-    p_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
-        cij, n, 0, bins), 3)
-    tile = cij_pad[:tile_r]
-    t_ms = device_ms(torch, lambda: hist.consensus_hist_counts_kernel(
-        tile, n, 0, bins), 50)
-    te_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_kernel(
-        tile, n, 0, bins), 50)
-    tp_ms = cuda_ms(torch, lambda: hist.consensus_hist_counts_plain(
-        tile, n, 0, bins), 5)
+        emit({"phase": "kernels", "kernel": "hist", "entry": entry,
+              "case": name, "counted": int(ref.sum()), "max_abs_err": err,
+              **line})
+
+    for name, (mij, iij, cij), rs, n_valid, off in rows:
+        block = cij[rs]
+        held("cij", name, hist.consensus_hist_counts_kernel(
+            block, n_valid, off, bins), hist.consensus_hist_counts_plain(
+            block, n_valid, off, bins), shape=list(block.shape),
+            row_offset=off, n_valid=n_valid)
+        zeros = torch.zeros(bins, dtype=torch.int64, device="cuda")
+        held("counts", name, hist.consensus_hist_from_counts_kernel(
+            mij[rs], iij[rs], n_valid, off, bins, zeros.clone()),
+            hist.consensus_hist_from_counts_plain(
+                mij[rs], iij[rs], n_valid, off, bins, zeros.clone()),
+            shape=list(block.shape), row_offset=off, n_valid=n_valid)
+    held("cij", "edge neighbours", hist.consensus_hist_counts_kernel(
+        edge_cij, 4096, 0, bins), hist.consensus_hist_counts_plain(
+        edge_cij, 4096, 0, bins), shape=list(edge_cij.shape))
+
     pairs = n * (n - 1) // 2
-    b_ms, b_by = bound_ms(pairs * 4 + (bins + 1) * 4 + bins * 4,
-                          pairs * (3 + math.ceil(math.log2(bins))))
-    # Tile 0 holds the pairs i < j < N of its rows.
-    t_pairs = sum(n - 1 - i for i in range(tile_r))
-    tb_ms, tb_by = bound_ms(t_pairs * 4 + (bins + 1) * 4 + bins * 4,
-                            t_pairs * (3 + math.ceil(math.log2(bins))))
+    t_pairs = sum(n - 1 - i for i in range(tile_r))  # tile 0: i < j < N
+    log_bins = math.ceil(math.log2(bins))
+
+    def timed(fn, plain, reps, n_pairs=pairs, per_pair=4, extra_ops=0):
+        # Out: int32 counts (the Cij entry), int64 (the count entry).
+        out_bytes = bins * (8 if per_pair == 8 else 4)
+        b_ms, b_by = bound_ms(n_pairs * per_pair + (bins + 1) * 4 + out_bytes,
+                              n_pairs * (3 + log_bins + extra_ops))
+        out = {"ms": device_ms(torch, fn, reps),
+               "eager_ms": cuda_ms(torch, fn, reps),
+               "bound_ms": b_ms, "bound_by": b_by}
+        out["plain_ms"] = cuda_ms(torch, plain, 3)
+        return out
+
+    def cij_entry(cij, rows_=slice(None)):
+        block = cij[rows_]
+        return (lambda: hist.consensus_hist_counts_kernel(block, n, 0, bins),
+                lambda: hist.consensus_hist_counts_plain(block, n, 0, bins))
+
+    def count_entry(mij, iij):
+        m, i = mij[:tile_r], iij[:tile_r]
+        out = torch.zeros(bins, dtype=torch.int64, device="cuda")
+        return (lambda: hist.consensus_hist_from_counts_kernel(
+                    m, i, n, 0, bins, out),
+                lambda: hist.consensus_hist_from_counts_plain(
+                    m, i, n, 0, bins, out))
+
+    tile = slice(0, tile_r)
+    full = timed(*cij_entry(counts["uniform"][2]), 20)
+    bimodal = timed(*cij_entry(counts["bimodal"][2]), 20)
+    tile_u = timed(*cij_entry(pad["uniform"][2], tile), 50, n_pairs=t_pairs)
+    tile_b = timed(*cij_entry(pad["bimodal"][2], tile), 50, n_pairs=t_pairs)
+    # The count entry reads 8 bytes a pair and adds the divide's operations
+    # (two conversions, an add, a divide) to the bin's.
+    cnt_u = timed(*count_entry(*pad["uniform"][:2]), 50, n_pairs=t_pairs,
+                  per_pair=8, extra_ops=4)
+    cnt_b = timed(*count_entry(*pad["bimodal"][:2]), 50, n_pairs=t_pairs,
+                  per_pair=8, extra_ops=4)
     results["hist"] = {
         "name": "hist", "route": "cuda",
         "source": "consensus_clustering_tpu_torch/csrc/hist.cu",
         "replaces": "consensus_clustering_tpu/ops/pallas_hist.py:47",
-        "launches": None, "max_abs_err": worst, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [n, n], "eager_ms": e_ms,
-        "stream_tile": {"shape": [tile_r, n_pad2], "ms": t_ms,
-                        "eager_ms": te_ms, "plain_ms": tp_ms,
-                        "bound_ms": tb_ms, "bound_by": tb_by},
+        "launches": None, "max_abs_err": worst, "ms": full["ms"],
+        "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"], "library_ms": None, "shape": [n, n],
+        "eager_ms": full["eager_ms"], "redesigned": True,
+        "bimodal": dict(bimodal, shape=[n, n]),
+        "stream_tile": dict(tile_u, shape=[tile_r, n_pad2]),
+        "stream_tile_bimodal": dict(tile_b, shape=[tile_r, n_pad2]),
+        "count_entry_tile": dict(cnt_u, shape=[tile_r, n_pad2]),
+        "count_entry_tile_bimodal": dict(cnt_b, shape=[tile_r, n_pad2]),
     }
-    emit({"phase": "kernels", "kernel": "hist", "timing_shape": [n, n],
-          "kernel_ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
-          "bound_ms": b_ms, "bound_by": b_by,
-          "stream_tile_shape": [tile_r, n_pad2], "stream_tile_ms": t_ms,
-          "stream_tile_eager_ms": te_ms, "stream_tile_plain_ms": tp_ms,
-          "stream_tile_bound_ms": tb_ms, "library_ms": None,
+    emit({"phase": "kernels", "kernel": "hist", "timing": results["hist"],
           "library_note": "no single PyTorch call computes it: torch.histc "
                           "bins by scaled floor, not by edge membership, "
                           "and takes no triangle mask"})
-
-    kernels_lloyd_assign(torch, results)
-    kernels_popcount(torch, results)
-    kernels_fused(torch, results)
 
 
 def kernels_lloyd_assign(torch, results):
@@ -592,10 +689,13 @@ def kernels_popcount(torch, results):
 
 def kernels_fused(torch, results):
     """B4 at the stream headline's block
-    (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0),
-    the reference's ragged probe (300 columns, 13 lanes, d 7, k_max 5,
-    2 words, row0 3) and a block whose slots only fit unpadded, read one
-    at a time (300 columns, 13 lanes, d 445, k_max 2, 1 word, row0 5).  On data quantised to 1/8 the planes equal the plain
+    (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0;
+    also at 1, 3 and 32 splits of a word's lanes), the reference's ragged
+    probe (300 columns, 13 lanes, d 7, k_max 5, 2 words, row0 3), a block whose
+    lanes do not fill a word and straddle two (640 columns, 45 lanes at
+    row0 17, d 24, k_max 9, 2 words) and a block whose slots only fit
+    unpadded, read one at a time (300 columns, 13 lanes, d 445, k_max 2,
+    1 word, row0 5).  On data quantised to 1/8 the planes equal the plain
     version; on raw blobs they equal the card's unfused route
     (assign_labels + pack_label_planes) on the same centroids."""
     from consensus_clustering_tpu_torch import rng
@@ -630,6 +730,7 @@ def kernels_fused(torch, results):
 
     x_head = torch.tensor(headline_data(), device="cuda")
     x_rag = torch.randn((300, 7), generator=g, device="cuda") * 3
+    x_part = torch.randn((600, 24), generator=g, device="cuda") * 3
     x_scalar = torch.randn((300, 445), generator=g, device="cuda") * 3
     layout = fused_block.fused_layout(445, 2)
     check(layout is not None and not layout[2],
@@ -638,6 +739,7 @@ def kernels_fused(torch, results):
     for shape, x, n_cols, lanes, k_max, n_words, row0, ks in (
         ("headline", x_head, 5120, 100, 20, 4, 0, (20, 7)),
         ("ragged probe", x_rag, 300, 13, 5, 2, 3, (4,)),
+        ("partial words, row0 17", x_part, 640, 45, 9, 2, 17, (9, 5)),
         ("scalar layout", x_scalar, 300, 13, 2, 1, 5, (2, 1)),
     ):
         for data in ("quantised", "raw"):
@@ -653,7 +755,13 @@ def kernels_fused(torch, results):
                 torch.cuda.synchronize()
                 eq_plain = bool(torch.equal(got, plain))
                 eq_route = bool(torch.equal(got, route))
-                worst = max(worst, int((got != plain).sum()))
+                if shape == "headline":
+                    for n in (1, 3, 32):
+                        other = fused_block.fused_assign_pack_kernel(
+                            x_cols, cents, k, cop, row0, n_words, splits=n)
+                        check(bool(torch.equal(got, other)),
+                              f"B4 at {n} splits a word != default "
+                              f"({data}, k={k})")
                 if data == "quantised":
                     check(eq_plain, f"B4 != plain ({shape}, k={k})")
                 check(eq_route, f"B4 != unfused route ({shape}, {data}, "
@@ -685,7 +793,7 @@ def kernels_fused(torch, results):
         "launches": None, "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [n_cols, d, 100, 20, 4],
-        "eager_ms": e_ms,
+        "redesigned": True, "eager_ms": e_ms,
     }
     emit({"phase": "kernels", "kernel": "fused_block",
           "timing_shape": [n_cols, d, 100, 20, 4], "kernel_ms": k_ms,

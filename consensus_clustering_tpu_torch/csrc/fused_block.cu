@@ -32,15 +32,39 @@
 // a block at the headline, so 6 blocks of 8 warps fit an SM: its 512
 // blocks are one wave of ~4 per SM.
 //
-// fused_planes_kernel: one block per (128-column tile, plane word); one
-// thread owns one column.  The block stages its x tile and the centroids
-// of the (at most 32) lanes of its word in shared memory in the routine's
-// layout, groups of lanes at a time when they do not all fit; per lane a
-// thread tests its co-sample bit, and where it is set takes the label from
-// the shared routine and ORs the bit into its own word of a (k_max, 128)
-// shared tile.  Each thread then writes each of its k_max output words
-// once, zeros included: every output word is written exactly once and no
-// atomics are needed.  Lanes outside [0, n_lanes) own no bits.
+// fused_planes_kernel.  The first design (one block per (128-column tile,
+// plane word), one thread per column walking its word's lanes in series)
+// ran at 7% of the bound: at the stream's block, 160 blocks of 4 warps on
+// 132 SMs; blocks of a full word walked 32 lanes while those of the last
+// word walked 4; and a thread whose column a lane had not sampled idled
+// while its warp computed.  This design:
+//  - Lanes, not words, spread over the grid: each word's lanes are cut
+//    into `splits` near-equal splits, one block per (tile, word, split).
+//    The wrapper sizes them to fill 2 blocks an SM: at the stream's block
+//    2 splits of 16 lanes, staged at once, measured fastest (more,
+//    shorter blocks stage the x tile and a lane's centroids more often).
+//  - Sampled pairs only: per stage of lanes, the warps of a 32-column group
+//    list its sampled (lane, column) pairs from one ballot a lane and take
+//    them 32 at a time, lane-major, so a round's pairs mostly share a lane
+//    (its centroids are broadcasts) and no thread waits on an unsampled
+//    pair.  A pair's label comes from cc_nearest_slots over all k slots.
+//  - The x tile is staged once per block and shared by its lanes; the
+//    lanes' centroids `stage` at a time in the routine's (d, ks) layout,
+//    with their norms.  The layout is the first design's, so every
+//    (d, k_max) it took still runs.
+//  - Bits are ORed in a (k_max, 128) shared tile and each output word is
+//    written once, zeros included; with more than one split a second
+//    kernel ORs a word's splits.  The bits of a word's splits are disjoint,
+//    so any order of the ORs gives the same word.
+// Measured on the way (PERF.md, Findings): ORing each bit straight
+// into zeroed planes with a global atomicOr cost a third of the kernel's
+// time; two threads a column (the halves of the slots, merged by a
+// shuffle) were slower than one.  Labels come from cc_nearest_slots,
+// unchanged, so fused == unfused holds by construction.  Lanes whose bit
+// lies past the planes' words own no bits.  ptxas (sm_90a): 64 registers
+// a thread (63 scalar), so at most 4 blocks of 256 threads an SM; at the
+// stream's block shared memory (101 KB with 16 lanes staged) allows 2.
+// The merge kernel takes 32.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -88,40 +112,61 @@ __global__ void __launch_bounds__(CC_ASSIGN_THREADS)
   }
 }
 
+#define CC_FUSED_THREADS (2 * CC_TILE)
+
+// Block (tile, word w, split s) of the fused kernel: the lanes of word w
+// that fall in split s of `splits` near-equal splits, `stage` at a time.
+// Warps g and g + 4 share the tile's columns 32 g .. 32 g + 31.  Per
+// stage they list those columns' sampled (lane, column) pairs, lane-major,
+// from one ballot a lane (thread l of the warp keeps lane l's), and take
+// the list's rounds of 32 in turn: no thread waits on an unsampled pair,
+// and a round's pairs mostly share a lane, whose centroids are then
+// broadcasts.  Bits meet in a (k_max, TILE) shared tile (atomicOr: two
+// lanes may set bits of one word), which the block writes to
+// out[j][w * splits + s][col], zeros included (an empty split too).
 template <bool VEC>
-__global__ void fused_planes_kernel(const float* __restrict__ x_cols,
-                                    const float* __restrict__ cen,
-                                    int n_lanes, int n_cols, int d, int k_max,
-                                    int k, int xs, int ks,
-                                    const int* __restrict__ cop, int row0,
-                                    int n_words, int lane_group,
-                                    int* __restrict__ planes) {
+__global__ void __launch_bounds__(CC_FUSED_THREADS)
+    fused_planes_kernel(const float* __restrict__ x_cols,
+                        const float* __restrict__ cen, int n_lanes,
+                        int n_cols, int d, int k_max, int k, int xs, int ks,
+                        const int* __restrict__ cop, int row0, int splits,
+                        int stage, int* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const size_t lane_words = (size_t)ks * (d + 1);  // (d, ks) + (ks,) norms
-  float* cg = smem;                                 // (group, lane_words)
-  int* acc = reinterpret_cast<int*>(cg + lane_group * lane_words);
+  float* cg = smem;                                 // (stage, lane_words)
+  int* acc = reinterpret_cast<int*>(cg + stage * lane_words);  // (k_max, TILE)
   float* xt = reinterpret_cast<float*>(acc + k_max * CC_TILE);  // (TILE, xs)
 
   const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int group = (t >> 5) & 3;  // columns 32 group .. 32 group + 31
+  const int turn = t >> 7;         // which of the group's two warps
   const int col0 = blockIdx.x * CC_TILE;
-  const int w = blockIdx.y;
   const int cols = min(CC_TILE, n_cols - col0);
-  const bool live = t < cols;
-  cc_stage_rows<8>(x_cols + (size_t)col0 * d, cols, d, xs, xt);
-  for (int j = 0; j < k_max; ++j) acc[j * CC_TILE + t] = 0;
-  const unsigned sampled = live ? (unsigned)cop[(size_t)w * n_cols + col0 + t]
-                                : 0u;
-  // Lanes whose bit row0 + l lies in word w.
-  const int l_lo = max(0, w * 32 - row0);
-  const int l_hi = min(n_lanes, (w + 1) * 32 - row0);
-  __syncthreads();
-  const float* xr = xt + t * xs;
-  const float xsq = live ? cc_sq_norm(xr, d) : 0.0f;
+  const int w = blockIdx.y / splits;
+  const int s = blockIdx.y - w * splits;
+  // The lanes whose bit row0 + l lies in word w, then split s of them.
+  const int w_lo = max(0, w * 32 - row0);
+  const int w_hi = min(n_lanes, (w + 1) * 32 - row0);
+  const int w_n = max(0, w_hi - w_lo);
+  const int l_lo = w_lo + s * w_n / splits;
+  const int l_hi = w_lo + (s + 1) * w_n / splits;
+  for (int i = t; i < k_max * CC_TILE; i += blockDim.x) acc[i] = 0;
+  // This thread's column for the ballots and the row norm.
+  const int my_col = group * 32 + lane;
+  const bool my_live = my_col < cols && l_lo < l_hi;
+  const unsigned bits =
+      my_live ? (unsigned)cop[(size_t)w * n_cols + col0 + my_col] : 0u;
+  if (l_lo < l_hi) {
+    cc_stage_rows<8>(x_cols + (size_t)col0 * d, cols, d, xs, xt);
+  }
+  float my_xsq = 0.0f;
 
-  for (int g0 = l_lo; g0 < l_hi; g0 += lane_group) {
-    const int g_n = min(lane_group, l_hi - g0);
-    cc_stage_centroids<8>(cen + (size_t)g0 * k_max * d, (size_t)k_max * d, g_n,
-                       lane_words, 0, k, d, ks, cg);
+  for (int g0 = l_lo; g0 < l_hi; g0 += stage) {
+    const int g_n = min(stage, l_hi - g0);
+    if (g0 > l_lo) __syncthreads();  // every thread is done with the last
+    cc_stage_centroids<8>(cen + (size_t)g0 * k_max * d, (size_t)k_max * d,
+                          g_n, lane_words, 0, k, d, ks, cg);
     __syncthreads();
     for (int p = t; p < g_n * k; p += blockDim.x) {
       const int l = p / k;
@@ -129,27 +174,71 @@ __global__ void fused_planes_kernel(const float* __restrict__ x_cols,
       float* ct = cg + l * lane_words;
       ct[(size_t)ks * d + j] = cc_staged_norm(ct, j, d, ks);
     }
-    __syncthreads();
-    if (live) {
-      for (int l = 0; l < g_n; ++l) {
-        const int bit = row0 + g0 + l - w * 32;
-        if (!((sampled >> bit) & 1u)) continue;
+    if (g0 == l_lo && my_live) my_xsq = cc_sq_norm(xt + my_col * xs, d);
+    // Thread l keeps lane g0 + l's sampled columns of the group, and the
+    // inclusive count of pairs up to that lane.
+    unsigned my_mask = 0u;
+    for (int l = 0; l < g_n; ++l) {
+      const unsigned m = __ballot_sync(
+          0xffffffffu, (bits >> ((row0 + g0 + l) & 31)) & 1u);
+      if (lane == l) my_mask = m;
+    }
+    int upto = __popc(my_mask);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, upto, o);
+      if (lane >= o) upto += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, upto, 31);
+    __syncthreads();  // the norms are staged
+    for (int r = turn; r * 32 < total; r += 2) {
+      const int p = r * 32 + lane;
+      int l = 0;  // the lane of pair p: lanes whose count ends at or before p
+      for (int i = 0; i < g_n; ++i) {
+        l += __shfl_sync(0xffffffffu, upto, i) <= p;
+      }
+      // Every thread takes part in each shuffle (the mask names them all).
+      const int prev = __shfl_sync(0xffffffffu, upto, max(l - 1, 0));
+      const int before = l > 0 ? prev : 0;
+      const unsigned m = __shfl_sync(0xffffffffu, my_mask, min(l, 31));
+      const bool active = p < total;
+      const int c = active ? (int)__fns(m, 0, p - before + 1) : 0;
+      const float xq = __shfl_sync(0xffffffffu, my_xsq, c);
+      if (active) {
+        const int col = group * 32 + c;
         const float* ct = cg + l * lane_words;
         float bv = INFINITY;
         int bj = 0;
-        cc_nearest_slots<VEC>(xr, xsq, ct, ct + (size_t)ks * d, ks, d, 0, k,
-                              0, bv, bj);
-        acc[bj * CC_TILE + t] |= (int)(1u << bit);
+        cc_nearest_slots<VEC>(xt + col * xs, xq, ct, ct + (size_t)ks * d, ks,
+                              d, 0, k, 0, bv, bj);
+        atomicOr(acc + bj * CC_TILE + col,
+                 (int)(1u << ((row0 + g0 + l) & 31)));
       }
     }
-    __syncthreads();
   }
-  if (live) {
-    for (int j = 0; j < k_max; ++j) {
-      planes[((size_t)j * n_words + w) * n_cols + col0 + t] =
-          acc[j * CC_TILE + t];
+  __syncthreads();
+  const int rows = gridDim.y;  // words x splits
+  for (int i = t; i < k_max * CC_TILE; i += blockDim.x) {
+    const int j = i / CC_TILE;
+    const int c = i - j * CC_TILE;
+    if (c < cols) {
+      out[((size_t)j * rows + blockIdx.y) * n_cols + col0 + c] = acc[i];
     }
   }
+}
+
+// planes[j][w][c] = OR over s of parts[j][w * splits + s][c]: the bits of
+// a word's splits are disjoint, so the OR of any order is the same word.
+__global__ void fused_merge_kernel(const int* __restrict__ parts,
+                                   long long words, int splits, int n_cols,
+                                   int* __restrict__ planes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= words * n_cols) return;
+  const long long jw = i / n_cols;  // j * n_words + w
+  const int c = (int)(i - jw * n_cols);
+  const int* src = parts + (jw * splits) * n_cols + c;
+  int v = 0;
+  for (int s = 0; s < splits; ++s) v |= src[(size_t)s * n_cols];
+  planes[i] = v;
 }
 
 static int g_assign_reserved_vec[CC_MAX_DEVICES];
@@ -198,24 +287,27 @@ CC_EXPORT int cc_assign_labels(const float* x, const int* lane_src,
 }
 
 // x_cols (n_cols, d), cen (n_lanes, k_max, d), cop (n_words, n_cols) int32;
-// planes (k_max, n_words, n_cols) int32, every word written.  lane_group
-// lanes' centroids are staged at a time in the layout (xs, ks, vec) of
-// ops/fused_block.fused_layout, which sizes them to fit.
+// planes (k_max, n_words, n_cols) int32, every word written.  Each word's
+// lanes are cut into `splits` near-equal splits, one block per (128-column
+// tile, word, split); `stage` lanes' centroids are staged at a time in the
+// layout (xs, ks, vec) of ops/fused_block.fused_layout, which sizes them to
+// fit.  With splits > 1 the blocks write `parts` (k_max, n_words * splits,
+// n_cols) and a second kernel ORs each word's splits into planes.
 CC_EXPORT int cc_fused_assign_pack(const float* x_cols, const float* cen,
                                    int n_lanes, int n_cols, int d, int k_max,
                                    int k, int xs, int ks, int vec,
                                    const int* cop, int row0, int n_words,
-                                   int lane_group, int* planes,
-                                   void* stream) {
+                                   int splits, int stage, int* parts,
+                                   int* planes, void* stream) {
   if (n_lanes < 0 || n_cols < 1 || d < 1 || k_max < 1 || k < 1 ||
       k > k_max || xs < d || ks < k_max || (vec && ks % 4 != 0) ||
-      row0 < 0 || n_words < 1 || n_words > 65535 || lane_group < 1 ||
-      lane_group > 32) {
+      row0 < 0 || n_words < 1 || splits < 1 || splits > 32 || stage < 1 ||
+      stage > 32 || (long long)n_words * splits > 65535 ||
+      (splits > 1 && parts == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem =
-      sizeof(float) * ((size_t)lane_group * ks * (d + 1) +
-                       (size_t)CC_TILE * xs) +
+      sizeof(float) * ((size_t)stage * ks * (d + 1) + (size_t)CC_TILE * xs) +
       sizeof(int) * (size_t)k_max * CC_TILE;
   if (smem > CC_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = vec ? (const void*)fused_planes_kernel<true>
@@ -223,16 +315,23 @@ CC_EXPORT int cc_fused_assign_pack(const float* x_cols, const float* cen,
   cudaError_t err = cc_reserve_smem(
       kernel, smem, vec ? g_fused_reserved_vec : g_fused_reserved_scalar);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_cols + CC_TILE - 1) / CC_TILE, n_words);
+  const dim3 grid((n_cols + CC_TILE - 1) / CC_TILE, n_words * splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* out = splits > 1 ? parts : planes;
   if (vec) {
-    fused_planes_kernel<true><<<grid, CC_TILE, smem, s>>>(
-        x_cols, cen, n_lanes, n_cols, d, k_max, k, xs, ks, cop, row0,
-        n_words, lane_group, planes);
+    fused_planes_kernel<true><<<grid, CC_FUSED_THREADS, smem, s>>>(
+        x_cols, cen, n_lanes, n_cols, d, k_max, k, xs, ks, cop, row0, splits,
+        stage, out);
   } else {
-    fused_planes_kernel<false><<<grid, CC_TILE, smem, s>>>(
-        x_cols, cen, n_lanes, n_cols, d, k_max, k, xs, ks, cop, row0,
-        n_words, lane_group, planes);
+    fused_planes_kernel<false><<<grid, CC_FUSED_THREADS, smem, s>>>(
+        x_cols, cen, n_lanes, n_cols, d, k_max, k, xs, ks, cop, row0, splits,
+        stage, out);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long words = (long long)k_max * n_words;
+  const long long total = words * n_cols;
+  fused_merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      parts, words, splits, n_cols, planes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ reference's N(N+1)/2 structural zeros in bin 0 (``parity_zeros``); PAC is
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -17,10 +18,28 @@ import torch
 from consensus_clustering_tpu_torch.config import pac_indices
 
 __all__ = [
-    "consensus_matrix", "hist_edges", "masked_histogram_counts",
+    "consensus_matrix", "hist_edges", "device_edges", "device_scalar",
+    "masked_histogram_counts",
     "cdf_pac_from_counts", "pac_indices", "bin_edges", "area_under_cdf",
     "delta_k", "select_best_k",
 ]
+
+
+@functools.lru_cache(maxsize=None)
+def device_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` rounded to a 0-d f32 tensor on ``device``, copied there once
+    per (value, device), not per call (a host-to-device copy is
+    synchronous).  A divide keeps its bits only with a tensor divisor: on a
+    CUDA tensor PyTorch turns a divide by a Python scalar into a multiply by
+    its reciprocal."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_edges(bins: int, device: torch.device) -> torch.Tensor:
+    """:func:`hist_edges` on ``device``, copied there once per (bins,
+    device)."""
+    return torch.tensor(hist_edges(bins), device=device)
 
 
 def consensus_matrix(
@@ -33,10 +52,11 @@ def consensus_matrix(
     package.  ``row_offset`` is the global index of row 0 of a row block:
     the diagonal is where the global row equals the column.
     """
-    eps = torch.tensor(1e-6, dtype=torch.float32, device=mij.device)
+    eps = device_scalar(1e-6, mij.device)
     cij = mij.to(torch.float32) / (iij.to(torch.float32) + eps)
     n_rows, n_cols = cij.shape
-    rows = torch.arange(max(0, -row_offset), min(n_rows, n_cols - row_offset),
+    first = max(0, -row_offset)
+    rows = torch.arange(first, max(first, min(n_rows, n_cols - row_offset)),
                         device=cij.device)
     cij[rows, rows + row_offset] = 1.0
     return cij
@@ -61,7 +81,7 @@ def masked_histogram_counts(
     right-closed, as ``np.histogram``.  One masked compare-and-sum per bin
     keeps the working set at one (R, C) mask instead of a (bins, R, C) one.
     """
-    edges = torch.tensor(hist_edges(bins), device=values.device)
+    edges = device_edges(bins, values.device)
     counts = []
     for b in range(bins):
         above = values >= edges[b]
@@ -90,9 +110,9 @@ def cdf_pac_from_counts(
         total = float(n) * float(n)
     else:
         total = float(n) * (n - 1) / 2.0
-    f32 = dict(dtype=torch.float32, device=counts.device)
-    hist = counts.to(torch.float32) / torch.tensor(total * (1.0 / bins), **f32)
-    cdf = torch.cumsum(counts, 0).to(torch.float32) / torch.tensor(total, **f32)
+    dev = counts.device
+    hist = counts.to(torch.float32) / device_scalar(total * (1.0 / bins), dev)
+    cdf = torch.cumsum(counts, 0).to(torch.float32) / device_scalar(total, dev)
     pac_area = cdf[pac_hi_idx - 1] - cdf[pac_lo_idx]
     return hist, cdf, pac_area
 

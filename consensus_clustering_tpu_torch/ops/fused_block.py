@@ -37,6 +37,10 @@ MAX_SMEM_BYTES = 232448
 MAX_LANES = 65535
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
+#: B4 blocks an SM that :func:`fused_word_splits` sizes the grid for: at
+#: the stream's block a block stages its 16 lanes at once in 101 KB of
+#: shared memory, so 2 share an SM.
+FUSED_BLOCKS_PER_SM = 2
 
 #: Launches of the fused assign+pack kernel (B4) since last set to 0.
 launch_count = 0
@@ -170,6 +174,17 @@ def lane_group_size(d: int, k_max: int) -> int:
     return layout[3] if layout else 0
 
 
+def fused_word_splits(n_words: int, n_cols: int) -> int:
+    """Splits of each plane word's lanes, one fused block each: enough that
+    the grid, 128-column tiles by words by splits, fills
+    FUSED_BLOCKS_PER_SM blocks an SM of an H100, at most 32.  At the
+    stream's block that is 2: fewer, longer blocks stage their x tile and
+    lanes once for more pairs (PERF.md, Findings)."""
+    tiles = -(-n_cols // TILE)
+    want = -(-FUSED_BLOCKS_PER_SM * H100_SMS // (tiles * n_words))
+    return max(1, min(PACK_BITS, want))
+
+
 def _library():
     lib = _build.load("fused_block")
     if not getattr(lib, "_cc_typed", False):
@@ -179,7 +194,7 @@ def _library():
         ]
         lib.cc_assign_labels.restype = ctypes.c_int
         lib.cc_fused_assign_pack.argtypes = [
-            p, p, i, i, i, i, i, i, i, i, p, i, i, i, p, p,
+            p, p, i, i, i, i, i, i, i, i, p, i, i, i, i, p, p, p,
         ]
         lib.cc_fused_assign_pack.restype = ctypes.c_int
         lib.cc_error_string.argtypes = [ctypes.c_int]
@@ -323,8 +338,11 @@ def fused_assign_pack_kernel(
     coplanes: torch.Tensor,
     row0: int,
     n_words: int,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch ``fused_planes_kernel`` of ``csrc/fused_block.cu``."""
+    """Launch ``fused_planes_kernel`` of ``csrc/fused_block.cu`` (and its
+    merge kernel): each word's lanes in ``splits`` blocks (default
+    :func:`fused_word_splits`)."""
     global launch_count
     if x_cols.device.type != "cuda":
         raise ValueError(
@@ -359,13 +377,20 @@ def fused_assign_pack_kernel(
     centroids = centroids.contiguous()
     coplanes = coplanes.contiguous()
     xs, ks, vec, group = layout
+    splits = splits or fused_word_splits(n_words, n_cols)
+    if n_words * splits > MAX_LANES:
+        raise ValueError(f"{n_words} words x {splits} splits exceed the "
+                         f"kernel grid's {MAX_LANES}")
     planes = torch.empty((k_max, n_words, n_cols), dtype=torch.int32,
                          device=x_cols.device)
+    parts = (torch.empty((k_max, n_words * splits, n_cols), dtype=torch.int32,
+                         device=x_cols.device) if splits > 1 else None)
     lib = _library()
     status = lib.cc_fused_assign_pack(
         x_cols.data_ptr(), centroids.data_ptr(), n_lanes, n_cols, d, k_max,
         int(k), xs, ks, int(vec), coplanes.data_ptr(), int(row0), n_words,
-        group, planes.data_ptr(),
+        splits, min(group, -(-PACK_BITS // splits)),
+        parts.data_ptr() if parts is not None else None, planes.data_ptr(),
         torch.cuda.current_stream(x_cols.device).cuda_stream,
     )
     _check_status(lib, status, "fused assign+pack")

@@ -9,7 +9,8 @@ device.  The sweep runs as blocks of ``stream_h_block`` resamples:
   w_cap, n_pad2) and co-sample planes ``coplanes`` (w_cap, n_pad2), int32
   words holding uint32 bit patterns (:mod:`..ops.bitpack`), 1/32 the bytes;
   int32 Mij/Iij exist only as row tiles of ``tile_r`` rows, popcounted
-  (:mod:`..ops.popcount`), turned into Cij, histogrammed and dropped.  The
+  (:mod:`..ops.popcount`), histogrammed through their Cij
+  (:func:`..ops.hist.consensus_hist_from_counts`) and dropped.  The
   state is updated in place (block b owns words ``b * wb .. b * wb + wb``).
 - **H is a runtime argument.**  One engine serves any ``n_iterations``
   (packed: up to the capacity its build config's H sets).
@@ -55,7 +56,7 @@ from consensus_clustering_tpu_torch.ops.bitpack import (
 )
 from consensus_clustering_tpu_torch.ops.coassoc import coassociation_counts
 from consensus_clustering_tpu_torch.ops.fused_block import fused_assign_pack
-from consensus_clustering_tpu_torch.ops.hist import consensus_hist_counts
+from consensus_clustering_tpu_torch.ops.hist import consensus_hist_from_counts
 from consensus_clustering_tpu_torch.ops.popcount import packed_coassoc_counts
 from consensus_clustering_tpu_torch.ops.resample import (
     cosample_counts,
@@ -234,7 +235,8 @@ class StreamingSweep:
         )
         x_sub = x[indices[:n_valid]]
         state["iij"] += cosample_counts(indices, n)
-        counts_per_k = []
+        counts = torch.zeros((self._n_ks, config.bins), dtype=torch.int64,
+                             device=self.device)
         for i, k in enumerate(config.k_values):
             labels = self._fit(x_sub, h_global, n_valid, key_cluster, k)
             state["mij"][i] += coassociation_counts(
@@ -242,9 +244,9 @@ class StreamingSweep:
             )
             # Curves from the ACCUMULATED counts: the consensus over every
             # resample so far, at the last block the monolithic input.
-            cij = consensus_matrix(state["mij"][i], state["iij"])
-            counts_per_k.append(consensus_hist_counts(cij, n, 0, config.bins))
-        return counts_per_k
+            consensus_hist_from_counts(state["mij"][i], state["iij"], n, 0,
+                                       config.bins, counts[i])
+        return list(counts)
 
     def _step_packed(self, state, x, x_cols, key_resample, key_cluster,
                      h_start, h_total):
@@ -272,9 +274,9 @@ class StreamingSweep:
                                         n_words=wb, row0=0)
             state["planes"][i, :, word0:word0 + wb] = blk
         # The evaluation, per row tile: one (tile_r, n_pad2) Iij tile, then
-        # every K's Mij tile from its planes, turned into Cij, histogrammed
-        # and dropped: the only int32 counts that ever exist in the packed
-        # step.
+        # every K's Mij tile from its planes, histogrammed through its Cij
+        # (formed in the kernel's registers) and dropped: the only int32
+        # counts that ever exist in the packed step.
         words = state["planes"].reshape(self._n_ks, k_max * self._w_cap,
                                         self._n_pad2)
         counts = torch.zeros((self._n_ks, config.bins), dtype=torch.int64,
@@ -284,8 +286,8 @@ class StreamingSweep:
             iij_t = packed_coassoc_counts(coplanes[:, tile], coplanes)
             for i in range(self._n_ks):
                 mij_t = packed_coassoc_counts(words[i, :, tile], words[i])
-                cij_t = consensus_matrix(mij_t, iij_t, row_offset=t0)
-                counts[i] += consensus_hist_counts(cij_t, n, t0, config.bins)
+                consensus_hist_from_counts(mij_t, iij_t, n, t0, config.bins,
+                                           counts[i])
         return list(counts)
 
     def columns(self, x: torch.Tensor) -> Optional[torch.Tensor]:

@@ -7,7 +7,7 @@ d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
 after a warm-up, through the monolithic dense sweep or, with ``--stream``,
 through the streaming engine (``stream_h_block=H_BLOCK``,
 ``accum_repr="packed"``, ``fuse_block="auto"``), whose stages split into
-clustering, packing (B4) and evaluation (B3, Cij, B1):
+clustering, packing (B4) and evaluation (B3, then B1 from the counts):
 
 1. over ``--ks``, plain, for the wall clock and resamples/s;
 2. over ``--ks``, with each stage of the sweep wrapped, from here, in a
@@ -81,14 +81,14 @@ _STAGES = {
         (streaming, "fused_assign_pack", "pack (B4)"),
         (streaming, "pack_label_planes", "pack (unfused)"),
         (streaming, "packed_coassoc_counts", "popcount (B3)"),
-        (streaming, "consensus_matrix", "cij"),
-        (streaming, "consensus_hist_counts", "hist"),
+        (streaming, "consensus_hist_from_counts", "cij+hist (B1)"),
         (sweep, "cdf_pac_from_counts", "curves"),
     ),
 }
 
 _KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
-                    "fused_planes_kernel", "assign_kernel")
+                    "fused_planes_kernel", "fused_merge_kernel",
+                    "assign_kernel")
 
 
 def _kernel_class(name: str) -> str:

@@ -41,6 +41,35 @@ def test_hist_kernel_equals_plain(cuda, n, rows, off, n_valid):
     assert torch.equal(got, ref)
 
 
+def _count_tiles(cuda, rows, cols, kind):
+    g = torch.Generator(device=cuda).manual_seed(rows + cols)
+    iij = torch.randint(1, 501, (rows, cols), generator=g, device=cuda)
+    u = torch.rand((rows, cols), generator=g, device=cuda)
+    if kind == "bimodal":  # most pairs never or always co-clustered
+        mij = torch.where(u < 0.8, 0, torch.where(
+            u < 0.95, iij, torch.floor(iij * torch.rand(
+                (rows, cols), generator=g, device=cuda))))
+    else:
+        mij = torch.floor(iij * u)
+        iij[:, :40], mij[:, :40] = 40, torch.arange(40, device=cuda)
+    return mij.int(), iij.int()
+
+
+@pytest.mark.parametrize("rows,cols,off,n_valid,kind",
+                         [(300, 300, 0, 300, "uniform"),
+                          (129, 517, 200, 500, "uniform"),  # scalar loads
+                          (256, 1024, 768, 1000, "bimodal")])
+def test_hist_count_entry_equals_plain(cuda, rows, cols, off, n_valid, kind):
+    mij, iij = _count_tiles(cuda, rows, cols, kind)
+    got = hist.consensus_hist_from_counts(
+        mij, iij, n_valid, off, 20, torch.zeros(20, dtype=torch.int64,
+                                                device=cuda))
+    ref = hist.consensus_hist_from_counts_plain(
+        mij, iij, n_valid, off, 20, torch.zeros(20, dtype=torch.int64,
+                                                device=cuda))
+    assert torch.equal(got, ref) and int(ref.sum()) > 0
+
+
 @pytest.mark.parametrize("b,n,d,n_init,k_max,k", [(4, 1000, 50, 3, 20, 20),
                                                   (3, 257, 9, 2, 7, 4)])
 def test_lloyd_kernel_equals_plain_on_quantised_data(cuda, b, n, d, n_init,
@@ -166,6 +195,8 @@ def test_popcount_kernel_equals_plain(cuda, l_words, r, c, col0):
 @pytest.mark.parametrize("n_cols,d,lanes,k_max,k,n_words,row0",
                          [(5120, 50, 100, 20, 7, 4, 0),
                           (300, 7, 13, 5, 4, 2, 3),
+                          # lanes that do not fill a word, and straddle two
+                          (640, 24, 45, 9, 5, 2, 17),
                           # slots that fit only unpadded: the scalar layout
                           (300, 445, 13, 2, 2, 1, 5)])
 def test_fused_kernel_equals_plain_and_unfused(cuda, n_cols, d, lanes, k_max,
@@ -216,6 +247,8 @@ def test_streamed_packed_fit_equals_monolithic_on_the_card(cuda):  # jaxlint: di
         "fused_kernel": "cuda"}
     assert all(n > 0 for n in stream.metrics_["kernel_launches"].values())
     for k in range(2, 5):
+        assert stream.cdf_at_K_data[k]["pac_area"] == (
+            mono.cdf_at_K_data[k]["pac_area"])
         for name in ("mij", "iij", "hist", "cdf"):
             np.testing.assert_array_equal(stream.cdf_at_K_data[k][name],
                                           mono.cdf_at_K_data[k][name])

@@ -135,3 +135,12 @@ def test_lane_groups_fit_shared_memory():
             <= fused_block.MAX_SMEM_BYTES)
     assert (fused_block.smem_bytes_assign(50, 20)
             <= fused_block.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("n_words,n_cols,expected", [
+    (4, 5120, 2),    # the stream's block: 160 tiles x words, 2 splits
+    (2, 300, 32),    # a small block: every lane its own block
+    (1, 64000, 1),   # 500 tiles already fill the card
+])
+def test_fused_word_splits(n_words, n_cols, expected):
+    assert fused_block.fused_word_splits(n_words, n_cols) == expected

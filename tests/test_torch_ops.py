@@ -180,3 +180,81 @@ def test_host_analysis_helpers_match_reference():
     np.testing.assert_array_equal(
         analysis.bin_edges(20), jax_analysis.bin_edges(20)
     )
+
+
+@pytest.mark.parametrize(
+    "n,rows,row_offset,n_valid,bins",
+    [(57, 57, 0, 57, 20),      # a full matrix
+     (130, 41, 37, 125, 20),   # ragged rows inside, n_valid below C
+     (130, 64, 96, 120, 7),    # rows past N: the last 34 count nothing
+     (130, 20, 140, 130, 20),  # row_offset past N: nothing counts
+     (90, 90, 0, 90, 7)],
+)
+def test_hist_from_counts_bit_identical(n, rows, row_offset, n_valid, bins):
+    # Mij/Iij int32 tiles with a band of exact edge ratios (6/40 and the
+    # like): the count entry against the reference's consensus_matrix, then
+    # its Pallas histogram in interpret mode.
+    mij, iij = _counts_pair(rows + n + bins, max(n, row_offset + rows), 40)
+    mij = mij[row_offset:row_offset + rows, :n]
+    iij = iij[row_offset:row_offset + rows, :n]
+    ref = np.asarray(jax_hist(
+        jax_analysis.consensus_matrix(
+            jnp.asarray(mij), jnp.asarray(iij), row_offset=row_offset),
+        n_valid, row_offset, bins, use_pallas=True, interpret=True,
+    ))
+    out = torch.full((bins,), 7, dtype=torch.int64)
+    got = hist.consensus_hist_from_counts(
+        torch.tensor(mij), torch.tensor(iij), n_valid, row_offset, bins, out)
+    assert got is out and out.dtype == torch.int64
+    np.testing.assert_array_equal(out.numpy(), ref.astype(np.int64) + 7)
+
+
+def test_hist_from_counts_refuses_cpu_tensors_at_the_kernel():
+    m = torch.zeros(4, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        hist.consensus_hist_from_counts_kernel(
+            m, m, 4, 0, 20, torch.zeros(20, dtype=torch.int64))
+    with pytest.raises(ValueError, match="bins"):
+        hist.consensus_hist_from_counts(
+            m, m, 4, 0, 129, torch.zeros(129, dtype=torch.int64))
+
+
+def _kernel_bin(values: np.ndarray, bins: int) -> np.ndarray:
+    """The kernel's bin rule (csrc/hist.cu) on the host, in f32: p = v *
+    bins, b = int(p) (bins - 1 where p == bins); within 2^-10 of an
+    integer, one step down if v < e[b] or up if v >= e[b + 1]; -1 outside
+    [e[0], e[bins]]."""
+    e = analysis.hist_edges(bins)
+    v = np.asarray(values, np.float32)
+    p = v * np.float32(bins)
+    b = np.clip(p.astype(np.int32), 0, bins - 1)
+    frac = p - b.astype(np.float32)
+    near = (p < bins) & (((frac < 2.0**-10) & (b > 0))
+                         | (frac > 1 - 2.0**-10))
+    down = near & (v < e[b])
+    up = near & ~down & (b + 1 < bins) & (v >= e[np.minimum(b + 1, bins)])
+    b = b - down + up
+    return np.where((v >= e[0]) & (v <= e[bins]), b, -1)
+
+
+@pytest.mark.parametrize("bins", [1, 3, 7, 20, 100, 128])
+def test_kernel_bin_rule_matches_np_histogram_at_every_edge(bins):
+    # Every f32 edge and its two neighbours on each side.
+    vals = []
+    for e in analysis.hist_edges(bins):
+        lo = hi = e
+        vals.append(e)
+        for _ in range(2):
+            lo = np.nextafter(lo, np.float32(-1))
+            hi = np.nextafter(hi, np.float32(2))
+            vals += [lo, hi]
+    vals = np.array(vals, np.float32)
+    got = _kernel_bin(vals, bins)
+    for v, b in zip(vals, got):
+        counts, _ = np.histogram([v], bins=bins, range=(0, 1))
+        assert b == (int(np.argmax(counts)) if counts.sum() else -1), v
+    # Away from the edges the guess alone decides: counts of random values.
+    rand = np.random.default_rng(bins).random(20000).astype(np.float32)
+    ref, _ = np.histogram(rand, bins=bins, range=(0, 1))
+    np.testing.assert_array_equal(
+        np.bincount(_kernel_bin(rand, bins), minlength=bins), ref)

@@ -14,6 +14,10 @@ from consensus_clustering_tpu_torch.profile_sweep import _kernel_class
     ("void fused_planes_kernel<true>(float const*, float const*, int)",
      "fused_planes_kernel"),
     ("hist_kernel(float const*, int, int)", "hist_kernel"),
+    ("void hist_kernel<CountLoad, 4, long long>(CountLoad, long long)",
+     "hist_kernel"),
+    ("fused_merge_kernel(int const*, long long, int, int, int*)",
+     "fused_merge_kernel"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize64x64x8", "cublas gemm"),
     ("void at::native::vectorized_elementwise_kernel<2, at::native::"
      "CUDAFunctor_add<long>>(int, long)",
