@@ -12,7 +12,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   card, at the shapes the main paths give it and at a
                   ragged shape, with kernel, plain and bound times; B1's
                   Cij and count entries also at the stream's first and
-                  last 256 x 5120 row tiles, a bimodal Cij (as at the
+                  last 256 x 5120 row tiles, B3 also at the packed
+                  sentinel's 16 spot rows, a bimodal Cij (as at the
                   headline's K = 8) and values beside every bin edge;
                   B2 and the final assignment bit for bit against the
                   plain versions that repeat their arithmetic, on raw
@@ -34,13 +35,31 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   launch counts and per-K PAC must equal the values
                   pinned from the kernels before the redesign of B2
                   and the final assignment (``PINNED_*``);
-5. small        — a small dense fit on the card and on the CPU (plain
+5. resume       — the stream's fit with ``checkpoint_dir`` and
+                  ``integrity_check_every=1``, the port's faults armed
+                  with ``block_start=3``: the first fit raises after
+                  blocks 0-2, a second resumes from block 3 (2 sentinel
+                  checks), its per-K PAC equal to ``PINNED_PAC`` and its
+                  hist to the stream's; the two fits' launches sum to the
+                  stream's pins plus the packed sentinel's B3 launches.
+                  Prints both walls, the ring's seconds and bytes a
+                  generation, the host copy, the restore and the packed
+                  sentinel's ms; B3's counts at the sentinel's spot rows
+                  (generation 2's words, Iij and every K) must equal the
+                  plain popcount's;
+6. small        — a small dense fit on the card and on the CPU (plain
                   versions): Iij identical, PAC within 0.02 per K;
-6. stream_small — N=300, H=60, K=2..6, blocks of 16 on the card: streamed
+7. stream_small — N=300, H=60, K=2..6, blocks of 16 on the card: streamed
                   dense == monolithic dense, packed == dense, fused planes
                   == unfused planes, bit for bit; card vs CPU Iij and
                   co-sample planes identical, PAC within 0.02 per K;
-7. corr         — corr.csv, K=2..14, H=30, seed 23: PAC inside the golden
+8. resilience_small — at the stream_small size: an accumulator bitflip
+                  caught and recovered (dense, packed), a lying payload
+                  refused at resume, a subprocess killed (exit 137) and
+                  resumed, per-K resume of a monolithic fit, the progress
+                  callback, and the dense sentinel at the dense stream's
+                  full shape (19 x 5000 x 5000) against its CPU run;
+9. corr         — corr.csv, K=2..14, H=30, seed 23: PAC inside the golden
                   bands of tests/fixtures/reference_goldens.json, iij.sum()
                   equal to the golden.
 
@@ -48,8 +67,9 @@ Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line; so does a machine without CUDA.  ``--phases env,kernels`` (or
 ``--phases stream``) runs a subset (the default is all of them); the
-stream phase compares with the headline only when both run in one call,
-and otherwise says ``"not run"`` for that comparison.
+stream phase compares with the headline, and resume with the stream, only
+when both run in one call, and otherwise says ``"not run"`` for that
+comparison.
 """
 
 import argparse
@@ -59,13 +79,14 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "headline", "stream", "small", "stream_small",
-          "corr")
+PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
+          "stream_small", "resilience_small", "corr")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -78,6 +99,7 @@ POPC_PER_S = 16 * 132 * 1.98e9
 
 HEADLINE = dict(K_range=range(2, 21), n_iterations=500, random_state=23,
                 store_matrices=False, chunk_size=4, cluster_batch=16)
+STREAM = dict(stream_h_block=100, accum_repr="packed", fuse_block="auto")
 
 # Pinned from the kernels before the redesign of B2 and the final
 # assignment (commit 5f1b481, run by this script on an NVIDIA H100 80GB
@@ -614,12 +636,17 @@ def kernels_lloyd_assign(torch, results):
 def kernels_popcount(torch, results):
     """B3 at the stream headline's evaluation tiles (Mij: 20 K-planes x 20
     words, a 256-row tile sliced from the 5120 columns, as the engine
-    passes it; Iij: 20 words) and at the reference's ragged probe shape,
-    on random bit patterns including bit 31; counts must be equal."""
+    passes it; Iij: 20 words), at the packed sentinel's spot rows (the 16
+    sampled columns of the same words against all 5120) and at the
+    reference's ragged probe shape, on random bit patterns including bit
+    31; counts must be equal."""
     from consensus_clustering_tpu_torch.ops import popcount
     from consensus_clustering_tpu_torch.ops.bitpack import (
         popcount_accumulate,
         unpack_bits,
+    )
+    from consensus_clustering_tpu_torch.resilience.integrity import (
+        sentinel_sample_rows,
     )
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -628,10 +655,14 @@ def kernels_popcount(torch, results):
         return torch.randint(-2**31, 2**31 - 1, (n_words, n_cols),
                              generator=g, device="cuda", dtype=torch.int32)
 
-    mij_cols, iij_cols, ragged = words(400, 5120), words(20, 5120), None
+    mij_cols, iij_cols = words(400, 5120), words(20, 5120)
+    spot = torch.as_tensor(sentinel_sample_rows(5000, 3), dtype=torch.int64,
+                           device="cuda")
     cases = [
         ("mij tile", mij_cols[:, 1024:1280], mij_cols),
         ("iij tile", iij_cols[:, 4864:5120], iij_cols),
+        ("sentinel mij spot rows", mij_cols[:, spot], mij_cols),
+        ("sentinel iij spot rows", iij_cols[:, spot], iij_cols),
         ("ragged probe", words(13, 264), words(13, 300)),
     ]
     worst = 0
@@ -863,10 +894,15 @@ def _drive(torch, phase, results, **kwargs):
           f"{PINNED_LAUNCHES[phase]}")
     check(all(same_pac), f"{phase}: per-K PAC differs from the pinned run "
                          f"at K={[k for k, e in zip(ks, same_pac) if not e]}")
+    _record_launches(results, phase, launches)
+    results[f"{phase}_wall"] = wall
+    return cc, launches
+
+
+def _record_launches(results, phase, launches):
     for name, n in launches.items():
         if name in results:
             results[name].setdefault("launches_by_phase", {})[phase] = n
-    return cc, launches
 
 
 def phase_headline(torch, results):
@@ -882,8 +918,8 @@ def phase_headline(torch, results):
 
 
 def phase_stream(torch, results):
-    cc, launches = _drive(torch, "stream", results, stream_h_block=100,
-                          accum_repr="packed", fuse_block="auto")
+    cc, launches = _drive(torch, "stream", results, **STREAM)
+    results["stream_fit"] = cc
     ks = list(HEADLINE["K_range"])
     n_blocks, n_tiles = 5, 20
     # Per block and row tile: one Iij tile, then each K's Mij tile.
@@ -928,6 +964,324 @@ def phase_stream(torch, results):
 # -- phase 5 -------------------------------------------------------------
 
 
+def phase_resume(torch, results):
+    """The stream's fit cut by a fault before block 3 and resumed from
+    the ring, with the sentinel on every block: the main path of the
+    resilience layer at the headline's full width."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from consensus_clustering_tpu_torch.resilience import (
+        InjectedFault,
+        faults,
+    )
+    from consensus_clustering_tpu_torch.resilience.blocks import decode_frame
+
+    x = headline_data()
+    ks = list(HEADLINE["K_range"])
+    per_check = len(ks) + 1  # the packed sentinel's B3 launches a check
+    with tempfile.TemporaryDirectory() as tmp:
+        kwargs = dict(HEADLINE, **STREAM, integrity_check_every=1,
+                      checkpoint_dir=tmp)
+        reset_launch_counts()
+        faults.configure("block_start=3")
+        first_checks = None
+        t0 = time.perf_counter()
+        try:
+            ConsensusClustering(**kwargs).fit(x)
+        except InjectedFault as e:
+            first_checks = e.integrity_checks_run
+        finally:
+            faults.clear()
+        first_wall = time.perf_counter() - t0
+        ring = os.path.join(tmp, "stream")
+        gens = sorted(os.listdir(ring))
+        frame_bytes = [os.path.getsize(os.path.join(ring, g)) for g in gens]
+        with open(os.path.join(ring, gens[-1]), "rb") as f:
+            header, arrays = decode_frame(f.read())
+        t0 = time.perf_counter()
+        cc = ConsensusClustering(**kwargs).fit(x)
+        second_wall = time.perf_counter() - t0
+        launches = launch_counts()
+        left = sorted(os.listdir(tmp))
+    _record_launches(results, "resume", launches)
+    s = cc.metrics_["streaming"]
+    writes = max(s["checkpoint_writes"], 1)
+    pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
+    same_pac = [float(a) == b for a, b in zip(pac, PINNED_PAC)]
+    pinned = dict(PINNED_LAUNCHES["stream"])
+    pinned["popcount"] += 5 * per_check
+    sentinel = _packed_sentinel_on_frame(torch, header, arrays)
+    stream_wall = results.get("stream_wall")
+    emit({"phase": "resume", "nvidia_smi": smi_line(),
+          "first_fit_raised": first_checks is not None,
+          "first_fit_checks": first_checks, "ring_after_fault": gens,
+          "resumed_from_block": s["resumed_from_block"],
+          "integrity_checks": s["integrity_checks"],
+          "checkpoint_writes": s["checkpoint_writes"],
+          "first_wall_seconds": first_wall,
+          "second_wall_seconds": second_wall,
+          "pair_wall_seconds": first_wall + second_wall,
+          "stream_wall_seconds": stream_wall,
+          "pair_over_stream": (first_wall + second_wall) / stream_wall
+          if stream_wall else "not run: the stream phase did not run",
+          "ring_seconds_per_generation":
+              s["checkpoint_write_seconds"] / writes,
+          "frame_bytes": frame_bytes,
+          "host_copy_seconds_per_block":
+              s["checkpoint_copy_seconds"] / writes,
+          "restore_seconds": s["restore_seconds"],
+          "sentinel_seconds_per_check_in_run":
+              s["integrity_seconds"] / max(s["integrity_checks"], 1),
+          "packed_sentinel_ms": sentinel["ms"],
+          "packed_sentinel_counts": sentinel["counts"],
+          "sentinel_spot_rows": {k: sentinel[f"spot_rows_{k}"] for k in (
+              "max_abs_err", "count_sum", "shapes")},
+          "launches": launches, "expected_launches": pinned,
+          "dir_after": left})
+    check(first_checks == 3, f"resume: the first fit raised with "
+                             f"{first_checks} checks, expected 3")
+    check(gens == ["gen-00000001.ckpt", "gen-00000002.ckpt"],
+          f"resume: ring after the fault {gens}")
+    check(s["resumed_from_block"] == 3 and s["integrity_checks"] == 2,
+          f"resume: resumed from {s['resumed_from_block']} with "
+          f"{s['integrity_checks']} checks")
+    check(launches == pinned, f"resume: launches {launches} != {pinned}")
+    check(all(same_pac), "resume: per-K PAC differs from the pinned run at "
+                         f"K={[k for k, e in zip(ks, same_pac) if not e]}")
+    check(left == [f"k{k:04d}.npz" for k in ks] + ["stream",
+                                                    "sweep_meta.json"],
+          f"resume: checkpoint dir after the fit {left}")
+    check(not any(sentinel["counts"].values()),
+          f"resume: packed sentinel on generation 2: {sentinel['counts']}")
+    check(sentinel["equal_cpu"], "resume: packed sentinel card != CPU")
+    check(sentinel["spot_rows_max_abs_err"] == 0
+          and sentinel["spot_rows_count_sum"] > 0,
+          "resume: B3 at the sentinel's spot rows != plain popcount "
+          f"(max err {sentinel['spot_rows_max_abs_err']}, count sum "
+          f"{sentinel['spot_rows_count_sum']})")
+    stream = results.get("stream_fit")
+    if stream is None:
+        emit({"phase": "resume", "hist_equal_to_stream_per_k":
+              "not run: the stream phase did not run in this call"})
+        return
+    same = [bool(np.array_equal(cc.cdf_at_K_data[k]["hist"],
+                                stream.cdf_at_K_data[k]["hist"]))
+            for k in ks]
+    emit({"phase": "resume", "hist_equal_to_stream_per_k": same})
+    check(all(same), "resume: per-K hist differs from the stream phase")
+
+
+def _packed_sentinel_on_frame(torch, header, arrays):
+    """The packed sentinel on a ring generation's state on the card: its
+    counts, its ms a check (CUDA events), whether B3's spot-row counts
+    (what the sentinel judges) equal the plain popcount on the same words
+    for Iij and every K, and whether the counts equal the sentinel's CPU
+    run on the same state, clean and with one bit flipped."""
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        popcount_accumulate,
+    )
+    from consensus_clustering_tpu_torch.ops.popcount import (
+        packed_coassoc_counts,
+    )
+    from consensus_clustering_tpu_torch.resilience import integrity
+
+    host = {name: np.ascontiguousarray(arrays[f"state_{name}"]).view(
+        np.int32) for name in ("planes", "coplanes")}
+    state = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    fn = integrity.build_packed_sentinel(int(header["hb_pad"]),
+                                         host["planes"].shape[1])
+    h_seen, n = int(header["h_done"]), 5000
+    idx = integrity.sentinel_sample_rows(n, header["block_index"])
+    counts = fn(state, h_seen, idx)
+    ms = cuda_ms(torch, lambda: fn(state, h_seen, idx), 5)
+    cop = state["coplanes"]
+    spot = torch.as_tensor(idx, dtype=torch.int64, device="cuda")
+    spot_err, spot_sum = 0, 0
+    for words in [cop] + [p.reshape(-1, cop.shape[1])
+                          for p in state["planes"]]:
+        got = packed_coassoc_counts(words[:, spot], words)
+        ref = popcount_accumulate(words[:, spot], words)
+        spot_err = max(spot_err, int((got.long() - ref.long()).abs().max()))
+        spot_sum += int(ref.long().sum())
+    equal_cpu = True
+    for flips in (0, 1):
+        if flips:
+            integrity.flip_array_bits(state["planes"], 1, seed=3)
+        cpu = {k: v.cpu() for k, v in state.items()}
+        got = fn(state, h_seen, idx)
+        equal_cpu &= got == fn(cpu, h_seen, idx)
+        equal_cpu &= bool(any(got.values())) == bool(flips)
+    return {"counts": counts, "ms": ms, "equal_cpu": equal_cpu,
+            "spot_rows_max_abs_err": spot_err, "spot_rows_count_sum": spot_sum,
+            "spot_rows_shapes": [[cop.shape[0], len(idx), cop.shape[1]],
+                                 [cop.shape[0] * state["planes"].shape[1],
+                                  len(idx), cop.shape[1]]]}
+
+
+# -- phase 8 -------------------------------------------------------------
+
+_SMALL_X = dict(n_samples=300, n_features=8, centers=4, cluster_std=2.0,
+                random_state=5)
+_KILLED_RUN = """
+import sys
+import numpy as np
+from consensus_clustering_tpu_torch import make_blobs
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.parallel.streaming import StreamingSweep
+from consensus_clustering_tpu_torch.resilience import StreamCheckpointer
+x = make_blobs(**{x_kwargs})[0].astype(np.float32)
+cfg = SweepConfig(**{cfg_kwargs})
+StreamingSweep(KMeans(n_init=2), cfg, device="cuda").run(
+    x, 7, 60, checkpointer=StreamCheckpointer(sys.argv[1]))
+"""
+
+
+def phase_resilience_small(torch):
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+    )
+    from consensus_clustering_tpu_torch.resilience import (
+        InjectedFault,
+        IntegrityError,
+        StreamCheckpointer,
+        faults,
+    )
+
+    x = make_blobs(**_SMALL_X)[0].astype(np.float32)
+    cfg_kwargs = dict(n_samples=300, n_features=8, k_values=(2, 3, 4, 5, 6),
+                      n_iterations=60, store_matrices=False,
+                      stream_h_block=16)
+    keys = ("hist", "cdf", "pac_area")
+
+    def same(a, b):
+        return all(np.array_equal(a[k], b[k]) for k in keys) and (
+            a["streaming"]["pac_trajectory"]
+            == b["streaming"]["pac_trajectory"])
+
+    def armed(plan, fn):
+        """``fn()``'s exception (None if it returned) with ``plan`` armed,
+        disarmed afterwards whatever happens."""
+        faults.configure(plan)
+        try:
+            fn()
+        except (InjectedFault, IntegrityError) as e:
+            return e
+        finally:
+            faults.clear()
+        return None
+
+    report = {}
+    engines, refs = {}, {}
+    for repr_ in ("dense", "packed"):
+        eng = StreamingSweep(KMeans(n_init=2), SweepConfig(
+            **cfg_kwargs, accum_repr=repr_), device="cuda")
+        engines[repr_], refs[repr_] = eng, eng.run(x, 7, 60)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = StreamCheckpointer(tmp)
+            err = armed("accumulator=1:bitflip", lambda: eng.run(
+                x, 7, 60, checkpointer=ck, integrity_check_every=1))
+            got = eng.run(x, 7, 60, checkpointer=ck, integrity_check_every=1)
+            ck.close()
+        report[f"a_{repr_}"] = ok = (
+            isinstance(err, IntegrityError) and err.point == "accumulator"
+            and err.block == 1
+            and got["streaming"]["resumed_from_block"] == 1
+            and same(got, refs[repr_]))
+        check(ok, f"resilience_small (a) {repr_}: {err!r}, resumed from "
+                  f"{got['streaming']['resumed_from_block']}")
+    eng, ref = engines["packed"], refs["packed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = StreamCheckpointer(tmp)
+        err = armed("checkpoint_payload=2:bitflip,block_start=3",
+                    lambda: eng.run(x, 7, 60, checkpointer=ck,
+                                    integrity_check_every=1))
+        got = eng.run(x, 7, 60, checkpointer=ck, integrity_check_every=1)
+        ck.close()
+    report["b"] = ok = (isinstance(err, InjectedFault)
+                        and ck.verify_rejects == 1
+                        and got["streaming"]["resumed_from_block"] == 2
+                        and same(got, ref))
+    check(ok, f"resilience_small (b): {err!r}, rejects {ck.verify_rejects},"
+              f" resumed from {got['streaming']['resumed_from_block']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        code = _KILLED_RUN.format(x_kwargs=repr(_SMALL_X), cfg_kwargs=repr(
+            dict(cfg_kwargs, accum_repr="packed")))
+        proc = subprocess.run(
+            [sys.executable, "-c", code, tmp], cwd=REPO, timeout=600,
+            env={**os.environ, "CCTPU_FAULTS": "block_start=2:kill"})
+        ck = StreamCheckpointer(tmp)
+        got = eng.run(x, 7, 60, checkpointer=ck)
+        ck.close()
+    report["c_exit_code"] = proc.returncode
+    report["c_resumed_from_block"] = got["streaming"]["resumed_from_block"]
+    report["c"] = ok = (proc.returncode == 137
+                        and report["c_resumed_from_block"] in (1, 2)
+                        and same(got, ref))
+    check(ok, f"resilience_small (c): exit {proc.returncode}, resumed from "
+              f"{report['c_resumed_from_block']}")
+    kw = dict(n_iterations=40, random_state=7, store_matrices=True,
+              cluster_batch=16)
+    fresh = ConsensusClustering(K_range=range(2, 7), **kw).fit(x)
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ConsensusClustering(K_range=range(2, 5), checkpoint_dir=tmp,
+                            **kw).fit(x)
+        wider = ConsensusClustering(
+            K_range=range(2, 7), checkpoint_dir=tmp,
+            progress_callback=lambda k, p: seen.append((k, p)), **kw).fit(x)
+    report["d"] = ok = wider.metrics_.get("resumed_ks") == [2, 3, 4] and all(
+        np.array_equal(wider.cdf_at_K_data[k][name],
+                       fresh.cdf_at_K_data[k][name])
+        for k in range(2, 7) for name in keys + ("mij", "iij", "cij"))
+    check(ok, f"resilience_small (d): resumed {wider.metrics_.get('resumed_ks')}"
+              ", or a K differs from a fresh fit")
+    report["e"] = ok = seen == [
+        (k, wider.cdf_at_K_data[k]["pac_area"]) for k in (5, 6)]
+    check(ok, f"resilience_small (e): progress {seen}")
+    report["f"] = _dense_sentinel_full_shape(torch)
+    emit({"phase": "resilience_small", **report})
+
+
+def _dense_sentinel_full_shape(torch):
+    """(f): the dense sentinel on a valid state of the dense stream's full
+    shape (Iij of the headline's plan, Mij = Iij for each of 19 K), on
+    the card against its CPU run, clean and with one bit flipped."""
+    from consensus_clustering_tpu_torch import rng
+    from consensus_clustering_tpu_torch.ops.resample import (
+        cosample_counts,
+        resample_indices,
+    )
+    from consensus_clustering_tpu_torch.resilience import integrity
+
+    n, h = 5000, 500
+    key = rng.split(rng.prng_key(23, "cuda"))[0]
+    iij = cosample_counts(resample_indices(key, n, h, 4000), n)
+    state = {"iij": iij, "mij": iij[None].repeat(19, 1, 1)}
+    fn = integrity.build_sentinel()
+    idx = integrity.sentinel_sample_rows(n, 4)
+    clean = fn(state, h, idx)
+    ms = cuda_ms(torch, lambda: fn(state, h, idx), 3)
+    integrity.flip_array_bits(state["mij"], 1, seed=4)
+    flipped = fn(state, h, idx)
+    cpu = fn({k: v.cpu() for k, v in state.items()}, h, idx)
+    out = {"shape": list(state["mij"].shape), "clean": clean,
+           "flipped": flipped, "flipped_cpu": cpu, "ms": ms}
+    check(not any(clean.values()), f"resilience_small (f): clean {clean}")
+    check(flipped == cpu and any(flipped.values()),
+          f"resilience_small (f): card {flipped} != CPU {cpu}")
+    return out
+
+
+# -- phase 6 -------------------------------------------------------------
+
+
 def phase_small(torch):
     from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
 
@@ -951,7 +1305,7 @@ def phase_small(torch):
     check(pac_gap <= 0.02, f"small: PAC gap {pac_gap} > 0.02")
 
 
-# -- phase 6 -------------------------------------------------------------
+# -- phase 7 -------------------------------------------------------------
 
 
 def phase_stream_small(torch):
@@ -1012,7 +1366,7 @@ def phase_stream_small(torch):
     check(pac_gap <= 0.02, f"stream_small: card/CPU PAC gap {pac_gap}")
 
 
-# -- phase 7 -------------------------------------------------------------
+# -- phase 9 -------------------------------------------------------------
 
 
 def phase_corr(torch):
@@ -1066,10 +1420,14 @@ def main(argv=None):
         phase_headline(torch, results)
     if "stream" in phases:
         phase_stream(torch, results)
+    if "resume" in phases:
+        phase_resume(torch, results)
     if "small" in phases:
         phase_small(torch)
     if "stream_small" in phases:
         phase_stream_small(torch)
+    if "resilience_small" in phases:
+        phase_resilience_small(torch)
     if "corr" in phases:
         phase_corr(torch)
 

@@ -10,18 +10,25 @@ K), and ``areas_``, ``delta_k_``, ``best_k_`` and ``metrics_`` (with
 ``device`` says otherwise, and raises without a GPU when no device is
 given.
 
+``checkpoint_dir`` saves each K as it lands and resumes only the missing
+Ks (:class:`.utils.checkpoint.SweepCheckpoint`); a streamed fit also keeps
+a ring of block checkpoints under ``<checkpoint_dir>/stream`` and resumes
+mid-stream, bit for bit.  ``integrity_check_every`` runs the accumulator
+sentinel in streamed fits, and ``progress_callback(k, pac)`` is called once
+per K, in K order.
+
 Features of the reference package that this package does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them:
 host/sklearn clusterers and consensus labels (A8), ``mode`` other than
-``exact`` (A9), ``autotune`` (A12), ``mesh`` (A13), plotting (A15), and
-``checkpoint_dir``, ``progress_callback`` and ``integrity_check_every``
-(A16).  Unlike the reference, ``plot_cdf`` defaults to False.
+``exact`` (A9), ``autotune`` (A12), ``mesh`` (A13) and plotting (A15).
+Unlike the reference, ``plot_cdf`` defaults to False.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -32,6 +39,7 @@ from consensus_clustering_tpu_torch.config import (
     validate_accum_repr,
     validate_fuse_block,
 )
+from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
 from consensus_clustering_tpu_torch.ops.analysis import (
     area_under_cdf,
@@ -89,6 +97,14 @@ class ConsensusClustering:
         as the reference (see :class:`~.config.SweepConfig`).
     compute_dtype : keyword-only
         "float32", or "float64" on the CPU (the parity path).
+    integrity_check_every : int, keyword-only
+        Streamed fits: run the accumulator invariant sentinel every that
+        many blocks (0: off); a breach raises ``IntegrityError``.
+    checkpoint_dir : str, keyword-only, optional
+        Per-K checkpoints (and, streamed, a block ring under ``stream/``):
+        a re-fit with the same arguments runs only what is missing.
+    progress_callback : keyword-only, optional
+        ``cb(k, pac)`` once per computed K, in K order.
     """
 
     def __init__(
@@ -140,16 +156,8 @@ class ConsensusClustering:
             raise not_ported("mesh (multi-device sweeps)", "A13")
         if mode != "exact":
             raise not_ported(f"mode={mode!r} (the pair estimator)", "A9")
-        if checkpoint_dir is not None:
-            raise not_ported("checkpoint_dir (per-K resume)", "A16")
-        if integrity_check_every:
-            raise not_ported(
-                "integrity_check_every > 0 (the accumulator sentinel)", "A16"
-            )
         if autotune:
             raise not_ported("autotune", "A12")
-        if progress_callback is not None:
-            raise not_ported("progress_callback", "A16")
         if consensus_matrix_analysis not in ("PAC", "delta_k"):
             raise ValueError(
                 f"consensus_matrix_analysis={consensus_matrix_analysis!r} "
@@ -192,6 +200,9 @@ class ConsensusClustering:
         self.adaptive_tol = adaptive_tol
         self.adaptive_patience = adaptive_patience
         self.adaptive_min_h = adaptive_min_h
+        self.integrity_check_every = integrity_check_every
+        self.checkpoint_dir = checkpoint_dir
+        self.progress_callback = progress_callback
 
     def _resolve_clusterer(self):
         c = KMeans() if self.clusterer is None else self.clusterer
@@ -270,24 +281,82 @@ class ConsensusClustering:
             accum_repr=self.accum_repr,
             use_packed_kernel=self.use_packed_kernel,
             fuse_block=self.fuse_block,
+            integrity_check_every=self.integrity_check_every,
             dtype=self.compute_dtype,
         )
-        if config.stream_h_block is not None:
-            from consensus_clustering_tpu_torch.parallel.streaming import (
-                run_streaming_sweep as run,
+        ckpt = None
+        loaded: Dict[int, Dict[str, np.ndarray]] = {}
+        missing = list(config.k_values)
+        if self.checkpoint_dir is not None:
+            from consensus_clustering_tpu_torch.utils.checkpoint import (
+                SweepCheckpoint,
+                backend_tag,
             )
-        else:
-            from consensus_clustering_tpu_torch.parallel.sweep import (
-                run_sweep as run,
+
+            ckpt = SweepCheckpoint(
+                self.checkpoint_dir, config, self.random_state,
+                backend_tag(resolve_device(self.device)),
             )
-        out = run(
-            self._resolve_clusterer(), config, X, self.random_state,
-            device=self.device,
-        )
-        self._build_results(out, config)
+            for k in config.k_values:
+                entry = ckpt.load_k(k)
+                if entry is not None:
+                    loaded[k] = entry
+            missing = [k for k in config.k_values if k not in loaded]
+        out, entries = None, {}
+        if missing:
+            out, entries = self._run(X, dataclasses.replace(
+                config, k_values=tuple(missing)), ckpt)
+        self._build_results(out, entries, config, loaded)
         return self
 
-    def _build_results(self, out: Dict[str, Any], config: SweepConfig):
+    def _run(self, X, config: SweepConfig, ckpt):
+        """Sweep ``config``'s Ks: the sweep's ``out`` and its per-K
+        entries, each saved to ``ckpt`` as soon as the sweep returns (and
+        only then is the block ring cleared)."""
+        clusterer = self._resolve_clusterer()
+        ring = None
+        if config.stream_h_block is None:
+            from consensus_clustering_tpu_torch.parallel.sweep import (
+                run_sweep,
+            )
+
+            out = run_sweep(clusterer, config, X, self.random_state,
+                            device=self.device,
+                            progress_callback=self.progress_callback)
+        else:
+            from consensus_clustering_tpu_torch.parallel.streaming import (
+                run_streaming_sweep,
+            )
+            from consensus_clustering_tpu_torch.resilience.blocks import (
+                StreamCheckpointer,
+            )
+
+            if self.checkpoint_dir is not None:
+                ring = StreamCheckpointer(
+                    os.path.join(self.checkpoint_dir, "stream"))
+            try:
+                out = run_streaming_sweep(
+                    clusterer, config, X, self.random_state,
+                    device=self.device, checkpointer=ring,
+                )
+            finally:
+                # Closed whatever happens; cleared only after the per-K
+                # save below: a ring that survives a crash is the point.
+                if ring is not None:
+                    ring.close()
+            if self.progress_callback is not None:
+                for i, k in enumerate(config.k_values):
+                    self.progress_callback(int(k), float(out["pac_area"][i]))
+        entries = self._entries(out, config)
+        if ckpt is not None:
+            for k in config.k_values:
+                ckpt.save_k(k, entries[k])
+            if ring is not None:
+                ring.clear()
+        return out, entries
+
+    def _entries(self, out: Dict[str, Any], config: SweepConfig):
+        """Per-K result entries (the reference's schema) of one sweep."""
         acc_dtype = self._accumulator_dtype()
         edges = bin_edges(config.bins)
         iij = out["iij"].astype(acc_dtype) if config.store_matrices else None
@@ -306,6 +375,29 @@ class ConsensusClustering:
                 entry["iij"] = iij
                 entry["cij"] = out["cij"][i]
             entries[k] = entry
+        return entries
+
+    def _build_results(self, out: Optional[Dict[str, Any]],
+                       entries: Dict[int, Dict[str, Any]],
+                       config: SweepConfig,
+                       loaded: Dict[int, Dict[str, np.ndarray]]):
+        """``cdf_at_K_data`` in ``config``'s K order from the sweep's
+        ``entries`` and the ``loaded`` checkpoints; ``metrics_`` of the
+        sweep's ``out``, or of a fit resumed in full (``out`` None)."""
+        edges = bin_edges(config.bins)
+        entries = dict(entries)
+        for k, saved in loaded.items():
+            entries[k] = {
+                "consensus_labels": [],
+                "hist": saved["hist"].astype(np.float64),
+                "cdf": saved["cdf"].astype(np.float64),
+                "bin_edges": edges,
+                "pac_area": float(saved["pac_area"]),
+                "mij": saved.get("mij"),
+                "iij": saved.get("iij"),
+                "cij": saved.get("cij"),
+            }
+        entries = {k: entries[k] for k in config.k_values}
         self.cdf_at_K_data = entries
         ks = list(config.k_values)
         self.areas_ = np.asarray(
@@ -319,6 +411,15 @@ class ConsensusClustering:
             delta_k_gains=self.delta_k_,
             delta_k_threshold=self.delta_k_threshold,
         )
+        if out is None:
+            # Resumed in full: no compute ran, so there is no rate (None,
+            # not inf: json.dumps would write the non-standard Infinity).
+            self.metrics_ = {
+                "compile_seconds": 0.0, "run_seconds": 0.0,
+                "resamples_per_second": None,
+                "resumed_from_checkpoint": True,
+            }
+            return
         timing = out["timing"]
         self.metrics_ = {
             "compile_seconds": timing["compile_seconds"],
@@ -328,6 +429,8 @@ class ConsensusClustering:
             "device": timing["device"],
             "kernel_launches": timing["kernel_launches"],
         }
+        if loaded:
+            self.metrics_["resumed_ks"] = sorted(int(k) for k in loaded)
         if timing["device_memory"]:
             self.metrics_["device_memory"] = timing["device_memory"]
         strategy = {

@@ -112,8 +112,10 @@ class SweepConfig:
       use_packed_kernel: None or True; the popcount kernel always serves
         CUDA tensors (False, the plain version on the card, is refused).
       fuse_block: ``auto``, ``on`` or ``off`` (:data:`FUSE_BLOCK_MODES`).
-      integrity_check_every: the accumulator sentinel's cadence; only 0
-        (off) is ported.
+      integrity_check_every: run the accumulator invariant sentinel
+        (:mod:`.resilience.integrity`) every that many streamed blocks,
+        the final block and, under ``adaptive_tol``, every block (0: off).
+        It only reads the state, so results are the same at any cadence.
       dtype: "float32", or "float64" for the CPU parity path.
     """
 
@@ -212,10 +214,6 @@ class SweepConfig:
             raise ValueError(
                 f"integrity_check_every must be an int >= 0 (0 = off), "
                 f"got {self.integrity_check_every!r}"
-            )
-        if self.integrity_check_every:
-            raise not_ported(
-                "integrity_check_every > 0 (the accumulator sentinel)", "A16"
             )
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")

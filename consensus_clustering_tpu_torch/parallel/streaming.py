@@ -26,6 +26,12 @@ device.  The sweep runs as blocks of ``stream_h_block`` resamples:
   Both give the same planes bit for bit.
 - **Adaptive early stop** (:func:`adaptive_decision`), with the reference's
   rule, on the per-block PAC trajectory.
+- **Resilience** (:mod:`..resilience`): a ring of block checkpoints the
+  run resumes from bit for bit (the state is updated in place, so each
+  checkpointed block's state is copied to the host before the next block
+  launches), the accumulator invariant sentinel every
+  ``integrity_check_every`` blocks, and the ``block_start`` and
+  ``accumulator`` fault points.
 
 The reference pipelines its driver (block b+1 is dispatched before block
 b's curves are read, and a stop discards it); this driver is synchronous,
@@ -69,6 +75,25 @@ from consensus_clustering_tpu_torch.parallel.sweep import (
     kernel_route,
     launches_since,
     resample_lane_keys,
+)
+from consensus_clustering_tpu_torch.resilience.blocks import (
+    StreamCheckpointer,
+)
+from consensus_clustering_tpu_torch.resilience.faults import (
+    IntegrityError,
+    faults,
+)
+from consensus_clustering_tpu_torch.resilience.integrity import (
+    build_packed_sentinel,
+    build_sentinel,
+    flip_array_bits,
+    sentinel_sample_rows,
+    verify_state_frame,
+)
+from consensus_clustering_tpu_torch.utils.checkpoint import (
+    backend_tag,
+    data_fingerprint,
+    stream_fingerprint,
 )
 from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
 
@@ -135,6 +160,7 @@ class StreamingSweep:
         self.packed_kernel = None
         self.fuse_block = None
         self.fused_kernel = None
+        self._sentinel = None  # built at the first check
         if packed:
             self.packed_kernel = kernel_route(self.device)
             eligible = (
@@ -173,14 +199,8 @@ class StreamingSweep:
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         """Fresh zeroed int32 state, made on the device."""
-        n, n_ks, k_max = self.config.n_samples, self._n_ks, self.config.k_max
-        if self._packed:
-            shapes = {"planes": (n_ks, k_max, self._w_cap, self._n_pad2),
-                      "coplanes": (self._w_cap, self._n_pad2)}
-        else:
-            shapes = {"mij": (n_ks, n, n), "iij": (n, n)}
         return {name: torch.zeros(shape, dtype=torch.int32, device=self.device)
-                for name, shape in shapes.items()}
+                for name, shape in self._state_shapes().items()}
 
     def warmup(self) -> float:
         """Build the CUDA kernels (nothing on the CPU); returns seconds."""
@@ -335,6 +355,74 @@ class StreamingSweep:
         path); not ported yet."""
         raise not_ported("run_fused (the serve batch axis)", "A10")
 
+    # -- resilience ------------------------------------------------------
+
+    def _state_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        n, n_ks, k_max = self.config.n_samples, self._n_ks, self.config.k_max
+        if self._packed:
+            return {"planes": (n_ks, k_max, self._w_cap, self._n_pad2),
+                    "coplanes": (self._w_cap, self._n_pad2)}
+        return {"mij": (n_ks, n, n), "iij": (n, n)}
+
+    def _integrity_stats(self, state, h_seen: int, block: int):
+        """The invariant sentinel on ``state`` (the packed one on packed
+        state, whose spot rows launch kernel B3 on the card): per-invariant
+        violation counts, all zero for a valid state."""
+        if self._sentinel is None:
+            self._sentinel = (
+                build_packed_sentinel(self._hb, self.config.k_max)
+                if self._packed else build_sentinel()
+            )
+        idx = sentinel_sample_rows(self.config.n_samples, block)
+        return self._sentinel(state, h_seen, idx)
+
+    def _flip_state_bits(self, state, nbits: int, block: int,
+                         h_seen: int) -> None:
+        """The ``accumulator`` bitflip fault, in place: the live region of
+        the per-K accumulator (dense ``mij``; packed: the planes' words of
+        the blocks run and the real N columns) goes to the host, gets
+        :func:`..resilience.integrity.flip_array_bits` with the block as
+        seed, and is written back.  Reached only when a plan armed it."""
+        if self._packed:
+            w_used = -(-h_seen // self._hb) * self._wb
+            live = state["planes"][:, :, :w_used, :self.config.n_samples]
+        else:
+            live = state["mij"]
+        host = live.cpu().numpy().copy()
+        flip_array_bits(host, nbits, seed=block)
+        live.copy_(torch.from_numpy(host))
+
+    def _host_snapshot(self, state) -> Dict[str, np.ndarray]:
+        """A host copy of the state for the ring, taken before the next
+        block updates it in place; packed planes as uint32 views of their
+        int32 bit patterns, the reference's frame dtype."""
+        out = {}
+        for name, value in state.items():
+            host = value.to("cpu", copy=True).numpy()
+            out[f"state_{name}"] = host.view(np.uint32) if self._packed \
+                else host
+        return out
+
+    def _restore(self, arrays) -> Dict[str, torch.Tensor]:
+        state = {}
+        for name in self._state_shapes():
+            host = np.ascontiguousarray(arrays[f"state_{name}"])
+            if host.dtype == np.uint32:
+                host = host.view(np.int32)
+            state[name] = torch.from_numpy(host).to(self.device)
+        return state
+
+    def _verify_frame(self, header, arrays) -> Optional[str]:
+        """:func:`..resilience.integrity.verify_state_frame`, after the
+        state's shapes are checked against this engine's (a packed ring
+        from an engine of another capacity has other word counts)."""
+        for name, shape in self._state_shapes().items():
+            got = arrays.get(f"state_{name}")
+            if got is None or tuple(got.shape) != shape:
+                return (f"state_{name} is not a {shape} array for this "
+                        "engine")
+        return verify_state_frame(header, arrays)
+
     # -- the driver ------------------------------------------------------
 
     def run(
@@ -346,7 +434,7 @@ class StreamingSweep:
         adaptive_tol: Optional[float] = None,
         adaptive_patience: Optional[int] = None,
         adaptive_min_h: Optional[int] = None,
-        checkpointer=None,
+        checkpointer: Optional[StreamCheckpointer] = None,
         integrity_check_every: Optional[int] = None,
         capture_state: bool = False,
     ) -> Dict[str, Any]:
@@ -360,20 +448,34 @@ class StreamingSweep:
         (nK, k_max, W, N), ``coplanes`` (W, N), int32 bit patterns); an
         early-stopped run captures none, as the reference's does.
 
+        ``checkpointer`` (a :class:`..resilience.blocks.StreamCheckpointer`)
+        makes the run resumable at block granularity: each due block's
+        state (copied to the host before the next block updates it in
+        place), curves and adaptive trajectory go to its ring, and a call
+        with the same config, seed, data, backend, H and adaptive knobs
+        (:func:`..utils.checkpoint.stream_fingerprint`) resumes from the
+        newest generation that passes :func:`..resilience.integrity.
+        verify_state_frame`, bit for bit as the uninterrupted run.
+
+        ``integrity_check_every`` (default: the build config's; 0 = off)
+        runs the invariant sentinel after every that-many-th block, the
+        final block, and every block under adaptive stop (any block can
+        be the last).  A breach raises :class:`..resilience.faults.
+        IntegrityError` before the block's curves enter the trajectory or
+        its state the ring.  An exception leaving ``run`` carries
+        ``integrity_checks_run``.
+
         ``timing`` holds ``run_seconds``, ``resamples_per_second``
         (h_effective x nK / run_seconds), ``device_memory``, ``device``,
         ``kernel_launches`` and, packed, ``packed_kernel`` (cuda|plain),
         ``fuse_block`` (fused|unfused) and, fused, ``fused_kernel``.
+        ``streaming`` adds the resilience accounting: ``resumed_from_block``
+        (0: a fresh run), ``checkpoint_writes``, ``integrity_checks`` and
+        their seconds (``restore_seconds``, ``checkpoint_copy_seconds``,
+        the writer thread's ``checkpoint_write_seconds``,
+        ``integrity_seconds``).
         """
         config = self.config
-        if checkpointer is not None:
-            raise not_ported("checkpointer (the block checkpoint ring)",
-                              "A16")
-        if integrity_check_every:
-            raise not_ported(
-                "integrity_check_every > 0 (the accumulator sentinel)",
-                "A16",
-            )
         if n_iterations < 1:
             raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
         if self._packed and n_iterations > self._h_cap:
@@ -395,6 +497,14 @@ class StreamingSweep:
             adaptive_patience = config.adaptive_patience
         if adaptive_min_h is None:
             adaptive_min_h = config.adaptive_min_h
+        if integrity_check_every is None:
+            integrity_check_every = config.integrity_check_every
+        integrity_check_every = int(integrity_check_every)
+        if integrity_check_every < 0:
+            raise ValueError(
+                f"integrity_check_every must be >= 0, got "
+                f"{integrity_check_every}"
+            )
         adaptive = adaptive_tol is not None
         if adaptive and config.store_matrices:
             raise ValueError(
@@ -411,7 +521,6 @@ class StreamingSweep:
                                                dtype=config.torch_dtype)
         key = rng.prng_key(seed, device)
         x_cols = self.columns(xd)
-        state = self.init_state()
         n_blocks = -(-n_iterations // self._hb)
         trajectory: List[List[float]] = []
         prev_pac = None
@@ -419,24 +528,131 @@ class StreamingSweep:
         stopped_early = False
         h_effective = 0
         host: Dict[str, np.ndarray] = {}
-        for b in range(n_blocks):
-            curves = self.step(state, xd, key, b * self._hb, n_iterations,
-                               x_cols=x_cols)
-            host = {name: v.cpu().numpy() for name, v in curves.items()}
-            h_effective = min((b + 1) * self._hb, n_iterations)
-            pac = host["pac_area"]
-            trajectory.append([float(v) for v in pac])
-            if block_callback is not None:
-                block_callback(b, h_effective, trajectory[-1])
-            if adaptive:
-                quiet, stop = adaptive_decision(
-                    prev_pac, pac, quiet, adaptive_tol, adaptive_patience,
-                    adaptive_min_h, h_effective, n_iterations,
-                )
+        state = None
+        start_block = 0
+        resume_terminal = False
+        seconds = dict.fromkeys(("restore", "copy", "integrity"), 0.0)
+        if checkpointer is not None:
+            ckpt_fp = stream_fingerprint(
+                config, seed, data_fingerprint(np.asarray(x)),
+                backend=backend_tag(device), n_iterations=n_iterations,
+                adaptive_tol=adaptive_tol,
+                adaptive_patience=adaptive_patience,
+                adaptive_min_h=adaptive_min_h,
+            )
+            writes0 = checkpointer.writes_total
+            write_s0 = checkpointer.write_seconds_total
+            t_restore = time.perf_counter()
+            resume = checkpointer.latest(ckpt_fp, verify=self._verify_frame)
+            if resume is not None:
+                header, arrays = resume
+                state = self._restore(arrays)
+                # float32, as the live run's PAC: the adaptive comparison
+                # must not widen to f64 on the resumed path only.
+                trajectory = [[float(v) for v in row]
+                              for row in header["trajectory"]]
+                if trajectory:
+                    prev_pac = np.asarray(trajectory[-1], dtype=np.float32)
+                quiet = int(header["quiet"])
+                h_effective = int(header["h_done"])
+                host = {name[len("curve_"):]: arrays[name]
+                        for name in arrays if name.startswith("curve_")}
+                start_block = int(header["block_index"]) + 1
+                checkpointer.resumes_total += 1
+                stopped_early = bool(header.get("stopped", False))
+                # A terminal generation (stop decided, or the last block)
+                # replays the stored answer with no block run.
+                resume_terminal = stopped_early or h_effective >= n_iterations
+                if on_cuda:
+                    torch.cuda.synchronize(device)
+            seconds["restore"] = time.perf_counter() - t_restore
+        if state is None:
+            state = self.init_state()
+        integrity_checks = 0
+
+        def check_due(b: int) -> bool:
+            if integrity_check_every <= 0:
+                return False
+            # Under adaptive stop any block can be the answer, so every
+            # block is checked: a stop never ships unchecked curves.
+            return adaptive or (
+                b % integrity_check_every == integrity_check_every - 1
+                or b == n_blocks - 1
+            )
+
+        try:
+            for b in range(start_block, start_block if resume_terminal
+                           else n_blocks):
+                faults.fire("block_start", index=b)
+                curves = self.step(state, xd, key, b * self._hb,
+                                   n_iterations, x_cols=x_cols)
+                h_done = min((b + 1) * self._hb, n_iterations)
+                nbits = faults.corrupt("accumulator", index=b)
+                if nbits:
+                    self._flip_state_bits(state, nbits, b, h_done)
+                if check_due(b):
+                    if on_cuda:
+                        torch.cuda.synchronize(device)
+                    t_check = time.perf_counter()
+                    integrity_checks += 1
+                    found = self._integrity_stats(state, h_done, b)
+                    seconds["integrity"] += time.perf_counter() - t_check
+                    bad = {name: v for name, v in found.items() if v}
+                    if bad:
+                        raise IntegrityError(
+                            "accumulator",
+                            f"integrity sentinel: block {b} state violates "
+                            f"the count invariants ({bad}): corrupt "
+                            "accumulator; retry from the last verified "
+                            "checkpoint",
+                            block=b, details=bad,
+                            checks_run=integrity_checks,
+                        )
+                host = {name: v.cpu().numpy() for name, v in curves.items()}
+                h_effective = h_done
+                pac = host["pac_area"]
+                trajectory.append([float(v) for v in pac])
+                if block_callback is not None:
+                    block_callback(b, h_effective, trajectory[-1])
+                stop = False
+                if adaptive:
+                    quiet, stop = adaptive_decision(
+                        prev_pac, pac, quiet, adaptive_tol,
+                        adaptive_patience, adaptive_min_h, h_effective,
+                        n_iterations,
+                    )
+                prev_pac = pac
+                if checkpointer is not None:
+                    t_copy = time.perf_counter()
+                    arrays = self._host_snapshot(state)
+                    seconds["copy"] += time.perf_counter() - t_copy
+                    arrays.update({f"curve_{name}": v
+                                   for name, v in host.items()})
+                    checkpointer.write_async({
+                        "fingerprint": ckpt_fp,
+                        "block_index": int(b),
+                        "h_done": int(h_effective),
+                        "n_iterations": int(n_iterations),
+                        "trajectory": [list(row) for row in trajectory],
+                        "quiet": int(quiet),
+                        "stopped": bool(stop),
+                        "accum_repr": config.accum_repr,
+                        "hb_pad": int(self._hb),
+                        "written_at": round(time.time(), 3),
+                    }, arrays)
                 if stop:
                     stopped_early = True
                     break
-            prev_pac = pac
+        except BaseException as e:
+            try:
+                e.integrity_checks_run = integrity_checks
+            except Exception:  # noqa: BLE001 -- never mask the failure
+                pass
+            raise
+        finally:
+            if checkpointer is not None:
+                # An aborted run still leaves a consistent ring.
+                checkpointer.flush()
         out: Dict[str, Any] = dict(host)
         if config.store_matrices and not stopped_early:
             out.update({name: v.cpu().numpy()
@@ -460,11 +676,21 @@ class StreamingSweep:
             "n_blocks_run": len(trajectory),
             "stopped_early": stopped_early,
             "pac_trajectory": trajectory,
-            "resumed_from_block": 0,
-            "checkpoint_writes": 0,
-            "integrity_checks": 0,
-            "integrity_check_every": 0,
+            "resumed_from_block": int(start_block),
+            "checkpoint_writes": (
+                checkpointer.writes_total - writes0
+                if checkpointer is not None else 0
+            ),
+            "integrity_checks": int(integrity_checks),
+            "integrity_check_every": int(integrity_check_every),
             "accum_repr": config.accum_repr,
+            "restore_seconds": seconds["restore"],
+            "checkpoint_copy_seconds": seconds["copy"],
+            "checkpoint_write_seconds": (
+                checkpointer.write_seconds_total - write_s0
+                if checkpointer is not None else 0.0
+            ),
+            "integrity_seconds": seconds["integrity"],
         }
         out["timing"] = {
             "run_seconds": run_seconds,
@@ -490,13 +716,16 @@ def run_streaming_sweep(
     seed: int,
     device=None,
     block_callback=None,
+    checkpointer: Optional[StreamCheckpointer] = None,
 ) -> Dict[str, Any]:
     """Build the engine, build the kernels and stream ``config``'s H: the
     counterpart of :func:`..parallel.sweep.run_sweep`, whose ``timing``
-    adds ``compile_seconds`` (building the kernels)."""
+    adds ``compile_seconds`` (building the kernels).  ``checkpointer``
+    makes the run resumable (:meth:`StreamingSweep.run`)."""
     engine = StreamingSweep(clusterer, config, device=device)
     compile_seconds = engine.warmup()
     out = engine.run(x, seed, config.n_iterations,
-                     block_callback=block_callback)
+                     block_callback=block_callback,
+                     checkpointer=checkpointer)
     out["timing"]["compile_seconds"] = compile_seconds
     return out

@@ -145,13 +145,19 @@ def curves_from_counts(
 
 
 def build_sweep(
-    clusterer: Clusterer, config: SweepConfig, device=None
+    clusterer: Clusterer, config: SweepConfig, device=None,
+    progress_callback: Optional[Callable[[int, float], None]] = None,
 ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """Return ``sweep(x, key) -> dict`` on ``device`` (default ``cuda``).
 
     The dict holds, stacked over ``config.k_values``: ``pac_area`` (nK,),
     ``hist`` and ``cdf`` (nK, bins), and with ``store_matrices`` also
     ``iij`` (N, N) and ``mij``/``cij`` (nK, N, N).
+
+    ``progress_callback(k, pac)``, if given, is called once per K, in K
+    order, as soon as that K's curves exist, with the PAC the result
+    reports (the same arithmetic on that K's row); each call reads one
+    value from the device.  Without it the sweep adds no work.
     """
     device = resolve_device(device)
     n = config.n_samples
@@ -190,6 +196,9 @@ def build_sweep(
                 )
             cij = consensus_matrix(mij, iij)
             counts.append(consensus_hist_counts(cij, n, 0, config.bins))
+            if progress_callback is not None:
+                pac = curves_from_counts(config, counts[-1:])["pac_area"]
+                progress_callback(int(k), float(pac[0]))
             if config.store_matrices:
                 mijs.append(mij)
                 cijs.append(cij)
@@ -210,8 +219,10 @@ def run_sweep(
     x: np.ndarray,
     seed: int,
     device=None,
+    progress_callback: Optional[Callable[[int, float], None]] = None,
 ) -> Dict[str, Any]:
-    """Run a sweep; return host (numpy) results plus a ``timing`` block.
+    """Run a sweep; return host (numpy) results plus a ``timing`` block
+    (``progress_callback``: see :func:`build_sweep`).
 
     ``timing``: ``compile_seconds`` (building the CUDA kernels; 0 when
     already built or on the CPU), ``run_seconds`` (wall clock until every
@@ -221,7 +232,7 @@ def run_sweep(
     ``kernel_launches`` (launches of each kernel in this run) and, for a
     packed sweep, ``packed_kernel`` (``cuda`` or ``plain``).
     """
-    sweep = build_sweep(clusterer, config, device)
+    sweep = build_sweep(clusterer, config, device, progress_callback)
     device = sweep.device
     on_cuda = device.type == "cuda"
     compile_seconds = build_kernels(device)

@@ -1,6 +1,7 @@
 """Where the time of a sweep goes on the GPU: stages, kernels, idle share.
 
     python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8] [--stream H_BLOCK]
+    python -m consensus_clustering_tpu_torch.profile_sweep --ab-ring H_BLOCK [--rounds N]
 
 Runs the headline configuration of ``chip_smoke.py`` (make_blobs N=5000
 d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
@@ -27,7 +28,14 @@ Prints the card's name and power limit, then one JSON line after parts 1
 and 2 and one after part 3, so a cut run keeps what it measured.  With
 ``--ab H_BLOCK`` it instead times the monolithic and the streamed sweep in
 turns (monolithic, streamed, streamed, monolithic) on the same card and
-prints one JSON line.  Needs a CUDA device.
+prints one JSON line; ``--ab-ring H_BLOCK`` times, the same way, the
+streamed sweep plain, with the resilience layer on (a checkpoint ring
+written every block and the integrity sentinel every block) and with the
+ring's writes held until after the run (the driver's side alone), with
+the ring's, the host copy's and the sentinel's seconds.  Both print each
+run's device busy share as NVML samples it (``nvidia-smi``
+``utilization.gpu``); ``--rounds N`` repeats the turns N times.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +63,9 @@ from consensus_clustering_tpu_torch.parallel.streaming import (
     run_streaming_sweep,
 )
 from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+from consensus_clustering_tpu_torch.resilience.blocks import (
+    StreamCheckpointer,
+)
 
 _CLUSTER_STAGES = (
     (kmeans, "_kmeanspp_init", "cluster/kmeans++"),
@@ -160,28 +172,118 @@ def _timed_stages(km, config, x, run, stages):
                   for _, _, n in stages}, lloyd_lanes
 
 
-def _ab(km, config, x, h_block):
-    """Monolithic dense, streamed packed, streamed packed, monolithic
-    dense: run seconds, launches and whether the curves agree."""
+class _DeferredRing(StreamCheckpointer):
+    """The ring with its writer's work (digest, npz, CRC, disk) held until
+    :meth:`drain`, after the run: the driver's side of the ring alone (its
+    host copies), with no writer thread beside the run."""
+
+    def __init__(self, directory: str):
+        super().__init__(directory)
+        self.held = []
+
+    def write_async(self, header, arrays) -> None:
+        self.held.append((dict(header), dict(arrays)))
+
+    def drain(self) -> None:
+        for item in self.held:
+            self._write_one(*item)
+        self.held.clear()
+
+
+def _resilient(km, config, x, deferred=False):
+    """One streamed run with a ring written every block and the sentinel
+    every block (with ``deferred``, the ring's writes after the run and
+    outside its busy samples), through :func:`_sampled`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = _DeferredRing(tmp) if deferred else StreamCheckpointer(tmp)
+        try:
+            return _sampled(lambda: run_streaming_sweep(
+                km, dataclasses.replace(config, integrity_check_every=1),
+                x, 23, checkpointer=ck))
+        finally:
+            if deferred:
+                ck.drain()
+            ck.close()
+
+
+def _sampled(run):
+    """``run()`` with NVML's ``utilization.gpu`` (the share of each ~0.1 s
+    sample in which a kernel ran) read by ``nvidia-smi`` beside it: its
+    output and the mean share over the run."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        out = run()
+    finally:
+        smi.terminate()
+        text, _ = smi.communicate(timeout=30)
+    samples = [float(v) for v in text.split() if v.isdigit()]
+    return out, sum(samples) / len(samples) / 100 if samples else None
+
+
+def _ab(km, config, x, h_block, ring, rounds=1):
+    """Engines in turns (first, second, ..., second, first, ``rounds``
+    times): run seconds, launches and whether the curves agree.  Without
+    ``ring``: monolithic dense against streamed packed; with it: streamed
+    packed plain, with a checkpoint ring and the sentinel every block (its
+    ``streaming`` resilience seconds beside), and the same with the ring's
+    writes held until after the run.  Each run also carries the device's
+    busy share as NVML samples it (:func:`_sampled`)."""
     streamed = dataclasses.replace(config, stream_h_block=h_block,
                                    accum_repr="packed", fuse_block="auto")
     run_sweep(km, dataclasses.replace(config, k_values=(2, 3),
                                       n_iterations=32), x, 23)  # warm-up
+
+    if ring:
+        engines = [
+            ("streamed", lambda: _sampled(
+                lambda: run_streaming_sweep(km, streamed, x, 23))),
+            ("streamed+ring+sentinel",
+             lambda: _resilient(km, streamed, x)),
+            ("streamed+ring+sentinel, writes after the run",
+             lambda: _resilient(km, streamed, x, deferred=True)),
+        ]
+    else:
+        engines = [
+            ("monolithic", lambda: _sampled(
+                lambda: run_sweep(km, config, x, 23))),
+            ("streamed", lambda: _sampled(
+                lambda: run_streaming_sweep(km, streamed, x, 23))),
+        ]
     runs = []
-    for name in ("monolithic", "streamed", "streamed", "monolithic"):
-        out = (run_sweep(km, config, x, 23) if name == "monolithic" else
-               run_streaming_sweep(km, streamed, x, 23))
-        runs.append({"engine": name,
-                     "run_seconds": out["timing"]["run_seconds"],
-                     "launches": out["timing"]["kernel_launches"],
-                     "pac_area": out["pac_area"].tolist()})
-    print(json.dumps({
-        "profile": "monolithic vs streamed, in turns", "h": config.n_iterations,
+    for _ in range(rounds):
+        for name, run in engines + engines[::-1]:
+            out, busy = run()
+            runs.append({"engine": name,
+                         "run_seconds": out["timing"]["run_seconds"],
+                         "nvml_busy_share": busy,
+                         "launches": out["timing"]["kernel_launches"],
+                         "pac_area": out["pac_area"].tolist()})
+            if name != "streamed" and ring:
+                runs[-1]["resilience_seconds"] = {
+                    key: out["streaming"][key] for key in (
+                        "checkpoint_copy_seconds",
+                        "checkpoint_write_seconds", "integrity_seconds",
+                        "checkpoint_writes", "integrity_checks")}
+
+    def median(key):
+        return {name: float(np.median([r[key] for r in runs
+                                       if r["engine"] == name]))
+                for name, _ in engines}
+
+    line = {
+        "profile": " vs ".join(name for name, _ in engines) + ", in turns",
+        "h": config.n_iterations,
         "k_values": list(config.k_values), "stream_h_block": h_block,
+        "rounds": rounds,
         "nvidia_smi": _smi(), "device": torch.cuda.get_device_name(0),
-        "runs": runs,
+        "runs": runs, "median_run_seconds": median("run_seconds"),
+        "median_nvml_busy_share": median("nvml_busy_share"),
         "pac_equal": all(r["pac_area"] == runs[0]["pac_area"] for r in runs),
-    }, default=float), flush=True)
+    }
+    print(json.dumps(line, default=float), flush=True)
     return 0
 
 
@@ -199,6 +301,9 @@ def main(argv=None):
     parser.add_argument("--h", type=int, default=500)
     parser.add_argument("--stream", type=int, default=None, metavar="H_BLOCK")
     parser.add_argument("--ab", type=int, default=None, metavar="H_BLOCK")
+    parser.add_argument("--ab-ring", type=int, default=None,
+                        metavar="H_BLOCK")
+    parser.add_argument("--rounds", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sweep: no CUDA device is visible", file=sys.stderr)
@@ -219,8 +324,9 @@ def main(argv=None):
         )
     run = run_sweep if args.stream is None else run_streaming_sweep
     km = KMeans(n_init=3)
-    if args.ab is not None:
-        return _ab(km, config, x, args.ab)
+    if args.ab is not None or args.ab_ring is not None:
+        return _ab(km, config, x, args.ab or args.ab_ring,
+                   ring=args.ab_ring is not None, rounds=args.rounds)
     # Warm-up: build the kernels and let cuBLAS pick its algorithms.
     run(km, dataclasses.replace(config, k_values=(2, 3),
                                 n_iterations=min(args.h, 32)), x, 23)

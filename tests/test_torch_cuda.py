@@ -192,6 +192,25 @@ def test_popcount_kernel_equals_plain(cuda, l_words, r, c, col0):
     assert torch.equal(got, popcount_accumulate(rows, cols))
 
 
+@pytest.mark.parametrize("l_words,c,n,block", [(400, 5120, 5000, 3),
+                                               (20, 5120, 5000, 2),
+                                               (8, 384, 300, 1)])
+def test_popcount_kernel_at_the_sentinel_spot_rows(cuda, l_words, c, n,
+                                                   block):
+    """The packed sentinel's shape: its 16 sampled columns, gathered,
+    against every column of the same words."""
+    from consensus_clustering_tpu_torch.resilience import integrity
+
+    g = torch.Generator(device=cuda).manual_seed(l_words + block)
+    cols = torch.randint(-2**31, 2**31 - 1, (l_words, c), generator=g,
+                         device=cuda, dtype=torch.int32)
+    idx = torch.as_tensor(integrity.sentinel_sample_rows(n, block),
+                          dtype=torch.int64, device=cuda)
+    got = popcount.packed_coassoc_counts(cols[:, idx], cols)
+    assert got.shape == (16, c)
+    assert torch.equal(got, popcount_accumulate(cols[:, idx], cols))
+
+
 @pytest.mark.parametrize("n_cols,d,lanes,k_max,k,n_words,row0",
                          [(5120, 50, 100, 20, 7, 4, 0),
                           (300, 7, 13, 5, 4, 2, 3),
@@ -252,3 +271,84 @@ def test_streamed_packed_fit_equals_monolithic_on_the_card(cuda):  # jaxlint: di
         for name in ("mij", "iij", "hist", "cdf"):
             np.testing.assert_array_equal(stream.cdf_at_K_data[k][name],
                                           mono.cdf_at_K_data[k][name])
+
+
+def _stream_state_on_card(cuda, accum_repr, n_blocks):
+    """The streaming engine's state after ``n_blocks`` blocks of 16 at the
+    stream_small size (N=300, K=2..6), on the card."""
+    from consensus_clustering_tpu_torch import make_blobs, rng
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+    )
+
+    x, _ = make_blobs(n_samples=300, n_features=8, centers=4,
+                      cluster_std=2.0, random_state=5)
+    config = SweepConfig(n_samples=300, n_features=8, k_values=(2, 3, 4, 5, 6),
+                         n_iterations=60, store_matrices=False,
+                         stream_h_block=16, accum_repr=accum_repr)
+    engine = StreamingSweep(KMeans(n_init=2), config, device=cuda)
+    engine.warmup()
+    xd = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    key = rng.prng_key(7, cuda)
+    state = engine.init_state()
+    for b in range(n_blocks):
+        engine.step(state, xd, key, b * 16, 60)
+    return engine, state
+
+
+@pytest.mark.parametrize("accum_repr", ["dense", "packed"])
+def test_sentinels_on_the_card_equal_their_cpu_run(cuda, accum_repr):
+    from consensus_clustering_tpu_torch.resilience import integrity
+
+    engine, state = _stream_state_on_card(cuda, accum_repr, 3)
+    name = "planes" if accum_repr == "packed" else "mij"
+    for flips in (0, 2):
+        if flips:
+            integrity.flip_array_bits(state[name], flips, seed=5)
+        before = popcount.launch_count
+        got = engine._integrity_stats(state, 48, 2)
+        launched = popcount.launch_count - before
+        cpu = engine._integrity_stats({k: v.cpu() for k, v in state.items()},
+                                      48, 2)
+        assert got == cpu
+        assert bool(any(got.values())) == bool(flips)
+        # The packed sentinel's spot rows go through B3: one launch for
+        # Iij and one for each K.
+        assert launched == (6 if accum_repr == "packed" else 0)
+
+
+def test_kill_and_resume_on_the_card_equals_uninterrupted(cuda, tmp_path):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    from consensus_clustering_tpu_torch import make_blobs
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+    )
+    from consensus_clustering_tpu_torch.resilience import (
+        InjectedFault,
+        StreamCheckpointer,
+        faults,
+    )
+
+    x, _ = make_blobs(n_samples=300, n_features=8, centers=4,
+                      cluster_std=2.0, random_state=5)
+    config = SweepConfig(n_samples=300, n_features=8, k_values=(2, 3, 4, 5, 6),
+                         n_iterations=60, store_matrices=True,
+                         stream_h_block=16, accum_repr="packed")
+    engine = StreamingSweep(KMeans(n_init=2), config, device=cuda)
+    ref = engine.run(x, 7, 60)
+    ck = StreamCheckpointer(str(tmp_path))
+    faults.configure("block_start=2")
+    try:
+        with pytest.raises(InjectedFault):
+            engine.run(x, 7, 60, checkpointer=ck, integrity_check_every=1)
+    finally:
+        faults.clear()
+    got = engine.run(x, 7, 60, checkpointer=ck, integrity_check_every=1)
+    ck.close()
+    assert got["streaming"]["resumed_from_block"] == 2
+    assert got["streaming"]["integrity_checks"] == 2
+    for name in ("hist", "cdf", "pac_area", "mij", "iij", "cij"):
+        np.testing.assert_array_equal(got[name], ref[name])

@@ -118,10 +118,8 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(stream_h_block=16, integrity_check_every=2),
-     dict(mode="auto"), dict(mode="estimate"),
-     dict(checkpoint_dir="ckpt"), dict(compute_consensus_labels=True),
-     dict(autotune=True), dict(progress_callback=print),
+    [dict(mesh=object()), dict(mode="auto"), dict(mode="estimate"),
+     dict(compute_consensus_labels=True), dict(autotune=True),
      dict(plot_cdf=True)],
 )
 def test_unported_features_raise(kwargs):

@@ -339,20 +339,9 @@ def test_features_left_for_later_raise():  # jaxlint: disable=JL018 -- every run
                          store_matrices=False, stream_h_block=4)
     engine = StreamingSweep(KMeans(), config, device="cpu")
     x = np.zeros((20, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="A16"):
-        engine.run(x, 0, 8, checkpointer=object())
-    with pytest.raises(NotImplementedError, match="A16"):
-        engine.run(x, 0, 8, integrity_check_every=2)
-    with pytest.raises(NotImplementedError, match="A16"):
-        StreamingSweep(KMeans(), dataclasses.replace(
-            config, integrity_check_every=1), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         StreamingSweep(KMeans(), config, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         engine.run_fused([x], [0], 8)
-    for kwargs in (dict(checkpoint_dir="ckpt"),
-                   dict(integrity_check_every=3)):
-        with pytest.raises(NotImplementedError, match="A16"):
-            ConsensusClustering(stream_h_block=4, **kwargs)
     with pytest.raises(ValueError, match="capture_state"):
         engine.run(x, 0, 8, capture_state=True)
