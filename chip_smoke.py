@@ -61,7 +61,35 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   full shape (19 x 5000 x 5000) against its CPU run;
 9. corr         — corr.csv, K=2..14, H=30, seed 23: PAC inside the golden
                   bands of tests/fixtures/reference_goldens.json, iij.sum()
-                  equal to the golden.
+                  equal to the golden;
+10. clusterers  — the clusterer family at the JAX package's bench sizes,
+                  each fit with the launch counts set to 0 just before and
+                  its wall, rate, launches and nvidia-smi line printed:
+                  ``gmm`` (make_blobs N=2000 d=16, GaussianMixture(n_init=2),
+                  H=100, K=2..10, through ``fit_predict``: PAC finite in
+                  [0, 1], the exact agglomerative labels regime at N=2000,
+                  ARI against the blobs' truth >= 0.95; then H=20 one
+                  resample a group with the same Mij as one group, and
+                  the one-group fit's Iij equal to the CPU run's, PAC
+                  within 0.02 per K and Mij equal at K=8),
+                  ``agglo`` (corr.csv, average linkage, H=500, K=2..10: Iij
+                  equal to the CPU run's, PAC within 0.02 per K),
+                  ``spectral`` (make_blobs N=2000 d=30, gamma 0.02, LOBPCG,
+                  H=50, K=2..10: PAC finite, B2 and the assignment
+                  launched; then H=10, K=2,5,8 in groups of 4 resamples
+                  with the same Mij as one group, and the one-group fit's
+                  Iij equal to the CPU run's, PAC within 0.02 per K (a
+                  statistical gate below K=8, the blob count) and Mij
+                  equal at K=8),
+                  ``host`` (corr.csv, a
+                  numpy Lloyd host clusterer, so that no sklearn is
+                  needed, H=100, K=2..10: Mij and Iij equal to the CPU
+                  run's),
+                  ``labels`` (consensus labels of the headline at K=8, the
+                  spectral regime above 4096 items: PAC equal to the pinned
+                  0.0, ARI against the blobs' truth >= 0.95) and ``k_batch``
+                  (the stream_small fit in batches of 2 Ks equal to one
+                  batch bit for bit).
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -86,7 +114,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
-          "stream_small", "resilience_small", "corr")
+          "stream_small", "resilience_small", "corr", "clusterers")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -457,8 +485,12 @@ def kernels_lloyd_assign(torch, results):
     - the headline lane batch with lane_src shuffled, so that the lanes a
       block takes in turn come from different resamples;
     - a case whose slots only fit unpadded, read one at a time (the
-      scalar layout): d 445, k_max 2, k 2.
-    Timing at the headline lane batch on raw blobs."""
+      scalar layout): d 445, k_max 2, k 2;
+    - the clusterer family's shapes: GMM's k-means init (200 lanes of
+      1600 x 16, k_max 10) and the spectral embedding's KMeans (150 lanes
+      of 1600 x 10).
+    Timing at the headline lane batch on raw blobs, and at the clusterer
+    family's two shapes."""
     from consensus_clustering_tpu_torch import rng
     from consensus_clustering_tpu_torch.data import make_blobs
     from consensus_clustering_tpu_torch.ops import fused_block, lloyd
@@ -502,6 +534,22 @@ def kernels_lloyd_assign(torch, results):
     src_c, cen_c = lanes_from(x_chunk, 2, 60)
     x_scalar = torch.randn((2, 300, 445), generator=g, device="cuda") * 3
     src_s, cen_s = lanes_from(x_scalar, 2, 2)
+    # The clusterer family's shapes: GMM's k-means init (100 resamples x 2
+    # restarts of 1600 x 16, one lane each, k_max 10) and the spectral
+    # embedding's KMeans (50 row-normalised 1600 x 10 embeddings, columns
+    # >= k zero, n_init 3).
+    x16_np, _ = make_blobs(n_samples=2000, n_features=16, centers=8,
+                           cluster_std=3.0, random_state=0)
+    x_gmm = torch.tensor(x16_np, dtype=torch.float32, device="cuda")[
+        resample_indices(rng.prng_key(23, "cuda"), 2000, 100, 1600)
+    ].repeat_interleave(2, dim=0)
+    src_m, cen_m = lanes_from(x_gmm, 1, 10)
+    emb = torch.randn((50, 1600, 10), generator=g, device="cuda")
+    emb[..., 8:] = 0.0
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    src_e, cen_e = lanes_from(emb, 3, 10)
+    clusterer_cases = [("gmm init raw", x_gmm, src_m, cen_m, 8),
+                       ("spectral embedding raw", emb, src_e, cen_e, 8)]
     cases = [("headline raw blobs", xr, src_r, cen_r, 20, "band"),
              ("headline quantised", xq, src_q, cen_q, 20, "exact"),
              ("ragged raw", x_rag, src_g, cen_g, 9, None),
@@ -514,6 +562,7 @@ def kernels_lloyd_assign(torch, results):
               src_q[torch.randperm(48, generator=g, device="cuda")], cen_q,
               20, None),
              ("scalar layout raw", x_scalar, src_s, cen_s, 2, None)]
+    cases += [case + (None,) for case in clusterer_cases]
     worst_l = worst_a = 0.0
     for name, xs, src, cen, k, gemm in cases:
         got = lloyd.lloyd_step_kernel(xs, src, cen, k)
@@ -631,6 +680,34 @@ def kernels_lloyd_assign(torch, results):
           "library_ms": None,
           "library_note": "no single PyTorch call returns nearest labels "
                           "and distances"})
+
+    # Both kernels at the clusterer family's shapes, beside their bounds.
+    for name, xs, src, cen, k in clusterer_cases:
+        src = src.to(torch.int32)
+        n_x, rows, d = xs.shape
+        lanes, k_max = cen.shape[:2]
+        lloyd_bound = bound_ms(
+            4 * (n_x * rows * d + lanes * k_max * d + lanes
+                 + lanes * k_max * (d + 2)),
+            lanes * rows * (2 * d * k_max + 3 * k_max + 3 * d))
+        assign_bound = bound_ms(
+            4 * (n_x * rows * d + lanes * k_max * d + lanes
+                 + 2 * lanes * rows),
+            lanes * rows * (k_max * (2 * d + 3) + 2 * d))
+        for kernel, fn, plain, bound in (
+                ("lloyd", lloyd.lloyd_step_kernel, lloyd.lloyd_step_plain,
+                 lloyd_bound),
+                ("assign", fused_block.assign_labels_kernel,
+                 fused_block.assign_labels_plain, assign_bound)):
+            timing = {
+                "shape": [lanes, rows, d, k_max],
+                "ms": device_ms(torch, lambda: fn(xs, src, cen, k), 50),
+                "plain_ms": cuda_ms(torch, lambda: plain(xs, src, cen, k),
+                                    3),
+                "bound_ms": bound[0], "bound_by": bound[1]}
+            results[kernel].setdefault("clusterer_shapes", {})[name] = timing
+            emit({"phase": "kernels", "kernel": kernel, "case": name,
+                  **timing})
 
 
 def kernels_popcount(torch, results):
@@ -1394,6 +1471,299 @@ def phase_corr(torch):
           "corr: PAC tail (K >= 4) not monotone within 0.02")
 
 
+# -- phase 10 ------------------------------------------------------------
+
+
+def _fit_counted(torch, name, x, **kwargs):
+    """``ConsensusClustering(**kwargs)`` fitted on the card (``fit_predict``
+    when ``kwargs`` asks for it) with the launch counts set to 0 just
+    before; emits the run; returns (fit, launches, wall, labels)."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    predict = kwargs.pop("predict", False)
+    cc = ConsensusClustering(device="cuda", progress=False, **kwargs)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    labels = cc.fit_predict(x) if predict else cc.fit(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ks = list(cc.cdf_at_K_data)
+    pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
+    emit({"phase": "clusterers", "fit": name, "nvidia_smi": smi_line(),
+          "wall_seconds": wall, "run_seconds": cc.metrics_["run_seconds"],
+          "resamples_per_second": cc.metrics_["resamples_per_second"],
+          "launches": launches, "ks": ks, "pac": pac.tolist(),
+          "best_k": cc.best_k_})
+    swept = cc.metrics_["kernel_launches"]
+    if predict or kwargs.get("compute_consensus_labels"):
+        # The consensus labels run after the sweep (spectral: B2, the
+        # assignment), so the sweep's own counts may be lower.
+        check(all(swept[k] <= n for k, n in launches.items())
+              and swept["hist"] == launches["hist"],
+              f"clusterers/{name}: metrics_ launch counts {swept}")
+    else:
+        check(swept == launches,
+              f"clusterers/{name}: metrics_ launch counts differ")
+    check(bool(np.isfinite(pac).all() and (pac >= 0).all()
+               and (pac <= 1).all()),
+          f"clusterers/{name}: PAC not finite in [0, 1]: {pac}")
+    return cc, launches, wall, (labels if predict else None)
+
+
+def adjusted_rand(a, b):
+    """The adjusted Rand index of two labellings (numpy only, so that the
+    script needs no sklearn)."""
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1))
+    np.add.at(table, (ai, bi), 1)
+
+    def pairs(v):
+        return float((v * (v - 1) / 2).sum())
+
+    s_ab, s_a, s_b = pairs(table), pairs(table.sum(1)), pairs(table.sum(0))
+    expected = s_a * s_b / pairs(np.array([len(ai)], float))
+    top = (s_a + s_b) / 2
+    return 1.0 if top == expected else (s_ab - expected) / (top - expected)
+
+
+class HostLloyd:
+    """A host clusterer (``fit_predict_host``) in numpy: Lloyd from k rows
+    drawn by ``RandomState(seed)``.  It drives the host backend without
+    sklearn; the sklearn adapter's path is tested on the CPU."""
+
+    def fit_predict_host(self, seed, x, k):
+        x = np.asarray(x, np.float64)
+        centres = x[np.random.RandomState(seed).choice(len(x), k, False)]
+        for _ in range(100):
+            labels = ((x[:, None] - centres[None]) ** 2).sum(-1).argmin(1)
+            new = np.stack([x[labels == j].mean(0) if (labels == j).any()
+                            else centres[j] for j in range(k)])
+            if np.array_equal(new, centres):
+                break
+            centres = new
+        return labels.astype(np.int32)
+
+
+def _cpu_fit(x, **kwargs):
+    from consensus_clustering_tpu_torch import ConsensusClustering
+
+    return ConsensusClustering(device="cpu", progress=False, **kwargs).fit(x)
+
+
+def _against_cpu(name, card, x, ks, band, **kwargs):
+    """Fits ``kwargs`` on the CPU and holds the card's fit ``card`` to it:
+    Iij equal, PAC within ``band`` at every K, and Mij equal at K=8, the
+    blob count, where the labels are determined (below it a spectral
+    embedding takes columns of a degenerate eigenspace's basis, which
+    rounding picks, so the band there is a statistical gate)."""
+    ref = _cpu_fit(x, K_range=ks, store_matrices=True, **kwargs)
+    iij_eq = bool(np.array_equal(card.cdf_at_K_data[ks[0]]["iij"],
+                                 ref.cdf_at_K_data[ks[0]]["iij"]))
+    gaps = [abs(card.cdf_at_K_data[k]["pac_area"]
+                - ref.cdf_at_K_data[k]["pac_area"]) for k in ks]
+    mij_eq = [bool(np.array_equal(card.cdf_at_K_data[k]["mij"],
+                                  ref.cdf_at_K_data[k]["mij"])) for k in ks]
+    emit({"phase": "clusterers", "fit": name, "card_cpu_iij_equal": iij_eq,
+          "card_cpu_pac_gap_per_k": gaps, "pac_band": band,
+          "card_cpu_mij_equal_per_k": mij_eq})
+    check(iij_eq, f"clusterers/{name}: Iij differs between the card and "
+                  "the CPU")
+    check(max(gaps) <= band, f"clusterers/{name}: card/CPU PAC gaps {gaps}")
+    check(mij_eq[list(ks).index(8)],
+          f"clusterers/{name}: card/CPU Mij differ at K=8")
+
+
+def _grouping(torch, name, x, cluster_batch, ks, **kwargs):
+    """Fits ``kwargs`` on the card in one group of resamples and in groups
+    of ``cluster_batch``, which must give the same Mij at every K (labels
+    are a per-resample function).  Returns the one-group fit."""
+    one = _fit_counted(torch, f"{name}/one group", x, K_range=ks,
+                       store_matrices=True, **kwargs)[0]
+    grouped = _fit_counted(torch, f"{name}/cluster_batch={cluster_batch}",
+                           x, K_range=ks, store_matrices=True,
+                           cluster_batch=cluster_batch, **kwargs)[0]
+    same = [bool(np.array_equal(one.cdf_at_K_data[k]["mij"],
+                                grouped.cdf_at_K_data[k]["mij"]))
+            for k in ks]
+    emit({"phase": "clusterers", "fit": name,
+          f"cluster_batch_{cluster_batch}_mij_equal_per_k": same})
+    check(all(same), f"clusterers/{name}: cluster_batch={cluster_batch} "
+                     f"changes Mij: {same}")
+    return one
+
+
+def phase_clusterers(torch, results):
+    from consensus_clustering_tpu_torch import (
+        AgglomerativeClustering,
+        GaussianMixture,
+        SpectralClustering,
+        load_corr,
+        make_blobs,
+    )
+    from consensus_clustering_tpu_torch.models.agglomerative import (
+        consensus_labels_from_cij,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+
+    t_phase = time.perf_counter()
+    ks = range(2, 11)
+    n_ks = len(ks)
+    corr = load_corr(transform=True)
+
+    def record(name, launches):
+        _record_launches(results, f"clusterers/{name}", launches)
+
+    # gmm, through fit_predict: the exact agglomerative regime at N=2000.
+    x, truth = make_blobs(n_samples=2000, n_features=16, centers=8,
+                          cluster_std=3.0, random_state=0)
+    x = x.astype(np.float32)
+    cc, launches, wall, labels = _fit_counted(
+        torch, "gmm", x, clusterer=GaussianMixture(n_init=2),
+        clusterer_options={}, K_range=ks, n_iterations=100,
+        random_state=23, store_matrices=True, predict=True)
+    record("gmm", launches)
+    pac = [cc.cdf_at_K_data[k]["pac_area"] for k in ks]
+    t0 = time.perf_counter()
+    again = consensus_labels_from_cij(cc.cdf_at_K_data[cc.best_k_]["cij"],
+                                      cc.best_k_, device="cuda")
+    torch.cuda.synchronize()
+    exact_seconds = time.perf_counter() - t0
+    ari = adjusted_rand(truth, labels)
+    emit({"phase": "clusterers", "fit": "gmm",
+          "pac_argmin_k": list(ks)[int(np.argmin(pac))],
+          "labels_regime": "agglomerative", "labels_n": len(labels),
+          "labels_k": cc.best_k_, "labels_seconds": exact_seconds,
+          "labels_ari_vs_truth": ari})
+    check(launches["lloyd"] > 0 and launches["assign"] > 0
+          and launches["hist"] == n_ks,
+          f"clusterers/gmm: launches {launches}")
+    check(np.array_equal(again, labels) and len(labels) == 2000,
+          "clusterers/gmm: fit_predict labels differ from a second "
+          "agglomeration of the same Cij")
+    check(ari >= 0.95, f"clusterers/gmm: labels ARI {ari} < 0.95")
+    # A shorter fit (H=20) one resample a group against one group, and
+    # the one-group fit against its CPU run.
+    kw = dict(clusterer=GaussianMixture(n_init=2), clusterer_options={},
+              n_iterations=20, random_state=23)
+    one = _grouping(torch, "gmm", x, 1, ks, **kw)
+    _against_cpu("gmm", one, x, ks, 0.02, **kw)
+
+    # agglo: against the CPU run of the same fit.
+    kw = dict(clusterer=AgglomerativeClustering(linkage="average"),
+              K_range=ks, n_iterations=500, random_state=23,
+              store_matrices=True)
+    cc, launches, _, _ = _fit_counted(torch, "agglo", corr, **kw)
+    record("agglo", launches)
+    ref = _cpu_fit(corr, **kw)
+    iij_eq = bool(np.array_equal(cc.cdf_at_K_data[2]["iij"],
+                                 ref.cdf_at_K_data[2]["iij"]))
+    gap = max(abs(cc.cdf_at_K_data[k]["pac_area"]
+                  - ref.cdf_at_K_data[k]["pac_area"]) for k in ks)
+    mij_eq = [bool(np.array_equal(cc.cdf_at_K_data[k]["mij"],
+                                  ref.cdf_at_K_data[k]["mij"])) for k in ks]
+    emit({"phase": "clusterers", "fit": "agglo", "card_cpu_iij_equal": iij_eq,
+          "card_cpu_max_pac_gap": gap, "card_cpu_mij_equal_per_k": mij_eq})
+    check(iij_eq, "clusterers/agglo: Iij differs between the card and the CPU")
+    check(gap <= 0.02, f"clusterers/agglo: card/CPU PAC gap {gap}")
+    check(launches["hist"] == n_ks and launches["lloyd"] == 0,
+          f"clusterers/agglo: launches {launches}")
+
+    # spectral: LOBPCG, then KMeans on the embedding (B2, the assignment);
+    # then a shorter fit in groups of 4 resamples against one group, and
+    # the one-group fit against its CPU run.
+    x30, _ = make_blobs(n_samples=2000, n_features=30, centers=8,
+                        cluster_std=3.0, random_state=0)
+    x30 = x30.astype(np.float32)
+    kw = dict(clusterer=SpectralClustering(gamma=0.02, solver="lobpcg"),
+              random_state=23, store_matrices=False)
+    cc, launches, _, _ = _fit_counted(torch, "spectral", x30, K_range=ks,
+                                      n_iterations=50, **kw)
+    record("spectral", launches)
+    check(launches["lloyd"] > 0 and launches["assign"] > 0
+          and launches["hist"] == n_ks,
+          f"clusterers/spectral: launches {launches}")
+    del kw["store_matrices"]
+    kw.update(n_iterations=10)
+    one = _grouping(torch, "spectral", x30, 4, (2, 5, 8), **kw)
+    _against_cpu("spectral", one, x30, (2, 5, 8), 0.02, **kw)
+
+    # host: labels on the host, counts on the card, against the CPU run.
+    kw = dict(clusterer=HostLloyd(), K_range=ks, n_iterations=100,
+              random_state=23, store_matrices=True)
+    cc, launches, _, _ = _fit_counted(torch, "host", corr, **kw)
+    record("host", launches)
+    ref = _cpu_fit(corr, **kw)
+    eq = {name: all(bool(np.array_equal(cc.cdf_at_K_data[k][name],
+                                        ref.cdf_at_K_data[k][name]))
+                    for k in ks) for name in ("mij", "iij")}
+    emit({"phase": "clusterers", "fit": "host", "card_cpu_equal": eq,
+          "label_seconds": sum(cc.metrics_["label_seconds_per_k"]),
+          "accumulate_seconds": sum(cc.metrics_["accumulate_seconds_per_k"])})
+    check(all(eq.values()), f"clusterers/host: card != CPU counts: {eq}")
+    check(launches["hist"] == n_ks and launches["lloyd"] == 0,
+          f"clusterers/host: launches {launches}")
+
+    # labels: the headline at K=8, the spectral regime above 4096 items.
+    x, truth = make_blobs(n_samples=5000, n_features=50, centers=8,
+                          cluster_std=3.0, random_state=0)
+    head = dict(HEADLINE, K_range=(8,), store_matrices=True)
+    cc, launches, _, _ = _fit_counted(
+        torch, "labels", x.astype(np.float32),
+        compute_consensus_labels=True, **head)
+    record("labels", launches)
+    entry = cc.cdf_at_K_data[8]
+    t0 = time.perf_counter()
+    again = consensus_labels_from_cij(entry["cij"], 8, seed=23,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    spectral_seconds = time.perf_counter() - t0
+    ari = adjusted_rand(truth, entry["consensus_labels"])
+    emit({"phase": "clusterers", "fit": "labels",
+          "labels_regime": "spectral", "labels_seconds": spectral_seconds,
+          "labels_ari_vs_truth": ari,
+          "cluster_consensus": entry["cluster_consensus"].tolist(),
+          "pac_equal_pinned": entry["pac_area"] == PINNED_PAC[6]})
+    check(entry["pac_area"] == PINNED_PAC[6],
+          f"clusterers/labels: PAC(K=8) {entry['pac_area']} != pinned "
+          f"{PINNED_PAC[6]}")
+    check(ari >= 0.95, f"clusterers/labels: ARI {ari} < 0.95")
+    check(np.array_equal(again, entry["consensus_labels"]),
+          "clusterers/labels: labels differ from a second spectral run")
+
+    # k_batch: the stream_small fit in batches of two Ks against one batch.
+    xs = make_blobs(**_SMALL_X)[0].astype(np.float32)
+    kw = dict(clusterer=KMeans(n_init=2), clusterer_options={},
+              K_range=range(2, 7), n_iterations=60, random_state=7,
+              store_matrices=True, stream_h_block=16, accum_repr="packed")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "events.jsonl")
+        one, _, _, _ = _fit_counted(torch, "k_batch/one", xs, **kw)
+        two, launches, _, _ = _fit_counted(torch, "k_batch/2", xs,
+                                           k_batch_size=2, metrics_path=path,
+                                           **kw)
+        with open(path) as f:
+            events = [json.loads(line)["event"] for line in f]
+    same = all(np.array_equal(one.cdf_at_K_data[k][name],
+                              two.cdf_at_K_data[k][name])
+               for k in range(2, 7)
+               for name in ("hist", "cdf", "pac_area", "mij", "iij", "cij"))
+    emit({"phase": "clusterers", "fit": "k_batch", "equal_to_one_batch": same,
+          "n_batches": two.metrics_["n_batches"], "events": events})
+    check(same, "clusterers/k_batch: batched fit differs from one batch")
+    check(two.metrics_["n_batches"] == 3
+          and events.count("k_batch_complete") == 3
+          and events[-1] == "sweep_complete",
+          f"clusterers/k_batch: {two.metrics_['n_batches']} batches, "
+          f"events {events}")
+    emit({"phase": "clusterers", "seconds": time.perf_counter() - t_phase})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES))
@@ -1430,6 +1800,8 @@ def main(argv=None):
         phase_resilience_small(torch)
     if "corr" in phases:
         phase_corr(torch)
+    if "clusterers" in phases:
+        phase_clusterers(torch, results)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)

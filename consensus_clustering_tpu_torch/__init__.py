@@ -1,13 +1,17 @@
 """Consensus clustering in PyTorch with hand-written CUDA kernels for Hopper.
 
-A second implementation of the ``consensus_clustering_tpu`` package's dense,
-single-device ``ConsensusClustering.fit`` path: the same resample plan (the
-counter-based generator in :mod:`.rng` reproduces ``jax.random`` bit for
-bit), the same KMeans inner clusterer, the same exact integer co-association
-and co-sampling counts, and the same CDF/PAC analysis.  Two kernels are
-written by hand in CUDA C++ (``csrc/``) and built with ``nvcc`` at first use:
-the consensus histogram (:mod:`.ops.hist`) and the fused Lloyd step
-(:mod:`.ops.lloyd`).
+A second implementation of the ``consensus_clustering_tpu`` package's
+single-device ``ConsensusClustering`` (``fit``, ``fit_predict``): the same
+resample plan (the counter-based generator in :mod:`.rng` reproduces
+``jax.random`` bit for bit), the same inner clusterers (KMeans, Gaussian
+mixture, agglomerative, spectral, and sklearn estimators on the host
+backend), the same exact integer co-association and co-sampling counts,
+monolithic or streamed, dense or packed, and the same CDF/PAC analysis.
+Its kernels are written by hand in CUDA C++ (``csrc/``) and built with
+``nvcc`` at first use: the consensus histogram (:mod:`.ops.hist`), the
+Lloyd step (:mod:`.ops.lloyd`), the popcount counts (:mod:`.ops.popcount`)
+and the final assignment, alone and fused with packing
+(:mod:`.ops.fused_block`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  The
@@ -31,6 +35,10 @@ _EXPORTS = {
     "ConsensusClustering": "consensus_clustering_tpu_torch.api",
     "SweepConfig": "consensus_clustering_tpu_torch.config",
     "KMeans": "consensus_clustering_tpu_torch.models.kmeans",
+    "GaussianMixture": "consensus_clustering_tpu_torch.models.gmm",
+    "AgglomerativeClustering":
+        "consensus_clustering_tpu_torch.models.agglomerative",
+    "SpectralClustering": "consensus_clustering_tpu_torch.models.spectral",
     "load_corr": "consensus_clustering_tpu_torch.data",
     "make_blobs": "consensus_clustering_tpu_torch.data",
 }

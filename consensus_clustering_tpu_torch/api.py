@@ -1,31 +1,50 @@
 """The sklearn-shaped API: ``ConsensusClustering(...).fit(X)``.
 
 The port of the reference package's ``api.py`` for its single-device
-paths: the monolithic sweep and, with ``stream_h_block``, the streaming
-H-block engine, each dense or packed (``accum_repr``); the same constructor
-arguments for what these paths do, the same ``cdf_at_K_data`` result schema
-(``consensus_labels, hist, cdf, bin_edges, pac_area, mij, iij, cij`` per
-K), and ``areas_``, ``delta_k_``, ``best_k_`` and ``metrics_`` (with
-``streaming`` for a streamed fit).  ``fit`` runs on ``cuda`` unless
-``device`` says otherwise, and raises without a GPU when no device is
-given.
+paths, with every keyword of the reference constructor (the port adds
+``device``):
 
-``checkpoint_dir`` saves each K as it lands and resumes only the missing
-Ks (:class:`.utils.checkpoint.SweepCheckpoint`); a streamed fit also keeps
-a ring of block checkpoints under ``<checkpoint_dir>/stream`` and resumes
-mid-stream, bit for bit.  ``integrity_check_every`` runs the accumulator
-sentinel in streamed fits, and ``progress_callback(k, pac)`` is called once
-per K, in K order.
+- device clusterers (:class:`~.models.kmeans.KMeans`,
+  :class:`~.models.gmm.GaussianMixture`,
+  :class:`~.models.agglomerative.AgglomerativeClustering`,
+  :class:`~.models.spectral.SpectralClustering`) run the monolithic sweep
+  or, with ``stream_h_block``, the streaming H-block engine, each dense or
+  packed (``accum_repr``);
+- host clusterers (any sklearn estimator with ``fit_predict`` and
+  ``get_params``, or a :class:`~.models.protocol.HostClusterer`) run the
+  host backend (:mod:`.parallel.host`): labels on the host, counts and
+  analysis on the device;
+- ``k_batch_size`` runs K in batches (a checkpoint and a
+  ``k_batch_complete`` event after each), ``metrics_path`` writes the
+  ``h_block_complete``, ``k_batch_complete`` and ``sweep_complete``
+  events, ``profile_dir`` a ``torch.profiler`` trace of the sweep;
+- ``compute_consensus_labels`` and :meth:`ConsensusClustering.fit_predict`
+  give consensus labels from Cij (:func:`~.models.agglomerative.
+  consensus_labels_from_cij`).
+
+The result schema is the reference's: ``cdf_at_K_data`` (``consensus_labels,
+hist, cdf, bin_edges, pac_area, mij, iij, cij`` per K, and with consensus
+labels ``cluster_consensus`` and ``item_consensus``), ``areas_``,
+``delta_k_``, ``best_k_`` and ``metrics_``.  ``fit`` runs on ``cuda``
+unless ``device`` says otherwise, and raises without a GPU when no device
+is given.
+
+``checkpoint_dir`` saves each K as its batch lands and resumes only the
+missing Ks (:class:`.utils.checkpoint.SweepCheckpoint`); a streamed fit
+also keeps a ring of block checkpoints under ``<checkpoint_dir>/stream``
+and resumes mid-stream, bit for bit.
 
 Features of the reference package that this package does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them:
-host/sklearn clusterers and consensus labels (A8), ``mode`` other than
-``exact`` (A9), ``autotune`` (A12), ``mesh`` (A13) and plotting (A15).
-Unlike the reference, ``plot_cdf`` defaults to False.
+``mode`` other than ``exact``, ``n_pairs`` and ``exact_best_k`` (A9),
+``autotune`` and ``calibration_dir`` (A12), ``mesh`` and ``k_interleave``
+(A13), and plotting (A15).  Unlike the reference, ``plot_cdf`` defaults to
+False.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -41,17 +60,45 @@ from consensus_clustering_tpu_torch.config import (
 )
 from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.models.protocol import (
+    Clusterer,
+    HostClusterer,
+)
+from consensus_clustering_tpu_torch.models.sklearn_adapter import (
+    SklearnClusterer,
+)
 from consensus_clustering_tpu_torch.ops.analysis import (
     area_under_cdf,
     bin_edges,
     delta_k,
     select_best_k,
 )
+from consensus_clustering_tpu_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
 
 _DEFAULT_CLUSTERER_OPTIONS = {"n_init": 3}
 _DELTA_K_THRESHOLD = 0.05
+_MODES = ("exact", "estimate", "auto")
+
+
+def _apply_options(clusterer: Any, options: Dict[str, Any]) -> Any:
+    """``clusterer_options`` on a dataclass clusterer, refusing unknown
+    fields as sklearn's ``set_params`` would."""
+    if not options:
+        return clusterer
+    if not dataclasses.is_dataclass(clusterer):
+        raise TypeError(
+            f"cannot apply clusterer_options to {type(clusterer).__name__}"
+        )
+    fields = {f.name for f in dataclasses.fields(clusterer)}
+    unknown = set(options) - fields
+    if unknown:
+        raise ValueError(
+            f"invalid clusterer option(s) {sorted(unknown)} for "
+            f"{type(clusterer).__name__}; valid: {sorted(fields)}"
+        )
+    return dataclasses.replace(clusterer, **options)
 
 
 class ConsensusClustering:
@@ -60,25 +107,36 @@ class ConsensusClustering:
     Parameters
     ----------
     clusterer : optional
-        A batched clusterer (``KMeans()``); None selects KMeans.  Host
-        (sklearn) clusterers are not ported (ROADMAP A8).
+        A device clusterer (``KMeans()``, ``GaussianMixture()``,
+        ``AgglomerativeClustering()``, ``SpectralClustering()``), a host
+        clusterer, or an sklearn estimator with ``fit_predict`` and an
+        ``n_clusters``/``n_components`` attribute (the host backend).
+        None selects KMeans.
     clusterer_options : dict, optional
-        Fields replaced on the clusterer (default ``{'n_init': 3}``).
+        Fields replaced on the clusterer (default ``{'n_init': 3}``, which
+        is dropped for a clusterer without ``n_init``).
     K_range, n_iterations, subsampling, random_state, PAC_interval,
     consensus_matrix_analysis, agg_clustering_linkage : as the reference.
     plot_cdf : bool
         Must be False: plotting is not ported (ROADMAP A15).
-    n_jobs, parallelization_method, memmap_folder :
+    n_jobs : int
+        Threads for the host backend's labelling loop.
+    parallelization_method, memmap_folder :
         accepted for API compatibility and ignored.
     device : keyword-only
         Torch device; None means ``cuda`` (raises without a GPU).
     store_matrices : bool or 'auto', keyword-only
         Keep per-K ``mij``/``cij`` and ``iij``; 'auto' keeps them while the
         stacked matrices stay under ~2 GB, and never under ``adaptive_tol``.
+    compute_consensus_labels : bool, keyword-only
+        Per-K consensus labels from Cij (agglomeration of ``1 - Cij`` up to
+        4096 items, spectral above), with Monti's ``cluster_consensus`` and
+        ``item_consensus``; needs the matrices.
     stream_h_block : int, keyword-only, optional
         Run the streaming engine over blocks of this many resamples (see
         :mod:`.parallel.streaming`); None runs the monolithic sweep.  The
-        full-H result is the same bit for bit.
+        full-H result is the same bit for bit.  Ignored (logged) on the
+        host backend, as are ``accum_repr`` and ``progress_callback``.
     accum_repr : {'dense', 'packed'}, keyword-only
         int32 (N, N) counts, or bit-planes counted by the popcount kernel
         (the same counts; with streaming, 1/32 the state).
@@ -89,9 +147,20 @@ class ConsensusClustering:
         ``adaptive_tol`` for ``adaptive_patience`` blocks, after
         ``adaptive_min_h`` resamples; ``metrics_['streaming']`` reports
         ``h_effective``.
-    use_packed_kernel : None or True, keyword-only
-        Accepted for compatibility: the popcount kernel always serves the
-        card (False raises).
+    use_packed_kernel, use_pallas : None or True, keyword-only
+        Accepted for compatibility: the card always runs the kernels
+        (False raises).
+    k_batch_size : int, keyword-only, optional
+        Run K in batches of this many values, saving the per-K checkpoint
+        and emitting ``k_batch_complete`` after each; the results are the
+        one-batch fit's bit for bit.
+    metrics_path : str, keyword-only, optional
+        Append JSON-lines events (``h_block_complete``,
+        ``k_batch_complete``, ``sweep_complete``) to this file.
+    progress : bool, keyword-only
+        tqdm bars per K on the host backend.
+    profile_dir : str, keyword-only, optional
+        Write a ``torch.profiler`` trace of the sweep into this directory.
     parity_zeros, bins, chunk_size, cluster_batch, split_init,
     reseed_clusterer_per_resample, delta_k_threshold : keyword-only,
         as the reference (see :class:`~.config.SweepConfig`).
@@ -104,7 +173,11 @@ class ConsensusClustering:
         Per-K checkpoints (and, streamed, a block ring under ``stream/``):
         a re-fit with the same arguments runs only what is missing.
     progress_callback : keyword-only, optional
-        ``cb(k, pac)`` once per computed K, in K order.
+        ``cb(k, pac)`` once per computed K, in K order (device paths).
+    mesh, k_interleave, autotune, calibration_dir, mode, n_pairs,
+    exact_best_k : keyword-only
+        Accepted at their defaults; other values raise the reference's
+        ``ValueError`` or ``NotImplementedError`` naming the ROADMAP item.
     """
 
     def __init__(
@@ -124,17 +197,25 @@ class ConsensusClustering:
         memmap_folder=None,
         *,
         device=None,
+        mesh=None,
         store_matrices="auto",
         parity_zeros: bool = True,
         bins: int = 20,
         chunk_size: int = 8,
         cluster_batch: Optional[int] = None,
-        split_init: bool = False,
+        split_init: Optional[bool] = None,
+        k_interleave: bool = False,
+        compute_consensus_labels: bool = False,
         reseed_clusterer_per_resample: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        progress: bool = True,
+        progress_callback=None,
+        profile_dir: Optional[str] = None,
+        use_pallas: Optional[bool] = None,
+        metrics_path: Optional[str] = None,
+        k_batch_size: Optional[int] = None,
         compute_dtype: str = "float32",
         delta_k_threshold: float = _DELTA_K_THRESHOLD,
-        compute_consensus_labels: bool = False,
-        mesh=None,
         stream_h_block: Optional[int] = None,
         accum_repr: str = "dense",
         use_packed_kernel: Optional[bool] = None,
@@ -143,21 +224,48 @@ class ConsensusClustering:
         adaptive_patience: int = 2,
         adaptive_min_h: int = 0,
         integrity_check_every: int = 0,
-        mode: str = "exact",
-        checkpoint_dir: Optional[str] = None,
         autotune: bool = False,
-        progress_callback=None,
+        calibration_dir: Optional[str] = None,
+        mode: str = "exact",
+        n_pairs: Optional[int] = None,
+        exact_best_k: bool = False,
     ):
         if plot_cdf:
             raise not_ported("plot_cdf=True (plotting)", "A15")
-        if compute_consensus_labels:
-            raise not_ported("compute_consensus_labels", "A8")
         if mesh is not None:
             raise not_ported("mesh (multi-device sweeps)", "A13")
+        if k_interleave:
+            raise not_ported("k_interleave (a 'k'-sharded mesh)", "A13")
+        if mode == "progressive":
+            raise ValueError(
+                "mode='progressive' is a serving mode (POST /jobs), "
+                "not a library mode — use 'estimate' here and refine "
+                "the chosen K with estimator.tiled.exact_curves_for_k"
+            )
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {list(_MODES)}, got {mode!r}")
         if mode != "exact":
             raise not_ported(f"mode={mode!r} (the pair estimator)", "A9")
+        if n_pairs is not None:
+            if (isinstance(n_pairs, bool) or not isinstance(n_pairs, int)
+                    or n_pairs < 1):
+                raise ValueError(
+                    f"n_pairs must be an int >= 1 or None, got {n_pairs!r}"
+                )
+            raise ValueError(
+                "n_pairs only applies with mode='estimate' or 'auto'"
+            )
+        if exact_best_k:
+            raise not_ported("exact_best_k (the pair estimator)", "A9")
         if autotune:
             raise not_ported("autotune", "A12")
+        if calibration_dir is not None:
+            raise not_ported("calibration_dir (autotune)", "A12")
+        if use_pallas is False:
+            raise ValueError(
+                "use_pallas=False would run the kernels' plain versions on "
+                "the card, a fallback the port does not take (pass None)"
+            )
         if consensus_matrix_analysis not in ("PAC", "delta_k"):
             raise ValueError(
                 f"consensus_matrix_analysis={consensus_matrix_analysis!r} "
@@ -167,7 +275,18 @@ class ConsensusClustering:
             raise ValueError(
                 f"delta_k_threshold must be >= 0, got {delta_k_threshold}"
             )
+        if k_batch_size is not None and k_batch_size < 1:
+            raise ValueError(f"k_batch_size must be >= 1, got {k_batch_size}")
+        if n_jobs != 1 or parallelization_method != "multithreading":
+            logger.info(
+                "n_jobs=%s applies only to the host backend's labelling "
+                "threads; parallelization_method=%r is ignored",
+                n_jobs, parallelization_method,
+            )
+        if memmap_folder is not None:
+            logger.info("memmap_folder is ignored: counts stay on the device")
         self.clusterer = clusterer
+        self._options_defaulted = clusterer_options is None
         self.clusterer_options = (
             dict(_DEFAULT_CLUSTERER_OPTIONS)
             if clusterer_options is None else dict(clusterer_options)
@@ -190,7 +309,15 @@ class ConsensusClustering:
         self.chunk_size = chunk_size
         self.cluster_batch = cluster_batch
         self.split_init = split_init
+        self.compute_consensus_labels = compute_consensus_labels
         self.reseed_clusterer_per_resample = reseed_clusterer_per_resample
+        self.checkpoint_dir = checkpoint_dir
+        self.progress = progress
+        self.progress_callback = progress_callback
+        self.profile_dir = profile_dir
+        self.use_pallas = use_pallas
+        self.metrics_path = metrics_path
+        self.k_batch_size = k_batch_size
         self.compute_dtype = compute_dtype
         self.delta_k_threshold = float(delta_k_threshold)
         self.stream_h_block = stream_h_block
@@ -201,27 +328,51 @@ class ConsensusClustering:
         self.adaptive_patience = adaptive_patience
         self.adaptive_min_h = adaptive_min_h
         self.integrity_check_every = integrity_check_every
-        self.checkpoint_dir = checkpoint_dir
-        self.progress_callback = progress_callback
+
+    # -- clusterer resolution -------------------------------------------
 
     def _resolve_clusterer(self):
-        c = KMeans() if self.clusterer is None else self.clusterer
-        if hasattr(c, "get_params") or not hasattr(c, "fit_predict"):
-            raise not_ported(
-                f"clusterer {type(c).__name__} (host/sklearn clusterers)",
-                "A8",
-            )
-        options = self.clusterer_options
-        if not options:
-            return c
-        fields = {f.name for f in dataclasses.fields(c)}
-        unknown = set(options) - fields
-        if unknown:
-            raise ValueError(
-                f"invalid clusterer option(s) {sorted(unknown)} for "
-                f"{type(c).__name__}; valid: {sorted(fields)}"
-            )
-        return dataclasses.replace(c, **options)
+        """(clusterer, is_host)."""
+        c = self.clusterer
+        if c is None:
+            logger.info("KMeans is set as default clusterer")
+            c = KMeans()
+        options = self._effective_options(c)
+        if isinstance(c, HostClusterer):
+            if isinstance(c, SklearnClusterer) and options:
+                c = SklearnClusterer(c.estimator, {**c.options, **options})
+            return c, True
+        # sklearn also spells its entry point fit_predict, so the estimator
+        # fingerprint get_params is checked before the device protocol.
+        if hasattr(c, "fit_predict") and hasattr(c, "get_params"):
+            return SklearnClusterer(c, options), True
+        if isinstance(c, Clusterer):
+            return _apply_options(c, options), False
+        raise TypeError(
+            f"clusterer {type(c).__name__} is neither a device Clusterer, a "
+            "HostClusterer, nor an sklearn-style estimator with fit_predict"
+        )
+
+    def _effective_options(self, c) -> Dict[str, Any]:
+        """The options to apply: the defaulted ``{'n_init': 3}`` is dropped
+        for a clusterer without ``n_init``; explicit options apply as they
+        are and may raise."""
+        options = dict(self.clusterer_options)
+        if self._options_defaulted and "n_init" in options:
+            if dataclasses.is_dataclass(c):
+                accepts = any(f.name == "n_init"
+                              for f in dataclasses.fields(c))
+            elif hasattr(c, "get_params"):
+                accepts = "n_init" in c.get_params()
+            elif isinstance(c, SklearnClusterer):
+                accepts = "n_init" in c.estimator.get_params()
+            else:
+                accepts = False
+            if not accepts:
+                options.pop("n_init")
+        return options
+
+    # -- fit -------------------------------------------------------------
 
     def _accumulator_dtype(self):
         """The reference's uint8/uint16 rule, uint32 beyond 2^16."""
@@ -260,6 +411,13 @@ class ConsensusClustering:
         if problem is not None:
             raise ValueError(f"{problem['error']} — {problem['hint']}")
         n, d = X.shape
+        if self.compute_consensus_labels and not self._resolve_store_matrices(n):
+            raise ValueError(
+                "compute_consensus_labels=True needs the consensus matrices "
+                "(store_matrices is False, or 'auto' disabled them for this "
+                "N); pass store_matrices=True explicitly"
+            )
+        device = resolve_device(self.device)
         config = SweepConfig(
             n_samples=n,
             n_features=d,
@@ -293,29 +451,119 @@ class ConsensusClustering:
                 backend_tag,
             )
 
-            ckpt = SweepCheckpoint(
-                self.checkpoint_dir, config, self.random_state,
-                backend_tag(resolve_device(self.device)),
-            )
+            ckpt = SweepCheckpoint(self.checkpoint_dir, config,
+                                   self.random_state, backend_tag(device))
             for k in config.k_values:
                 entry = ckpt.load_k(k)
                 if entry is not None:
                     loaded[k] = entry
             missing = [k for k in config.k_values if k not in loaded]
-        out, entries = None, {}
+        metrics_logger = MetricsLogger(self.metrics_path)
+        entries: Dict[int, Dict[str, Any]] = {}
+        timings, streaming_infos = [], []
         if missing:
-            out, entries = self._run(X, dataclasses.replace(
-                config, k_values=tuple(missing)), ckpt)
-        self._build_results(out, entries, config, loaded)
+            clusterer, is_host = self._resolve_clusterer()
+            if is_host:
+                self._log_host_ignores()
+            batch = self.k_batch_size or len(missing)
+            n_batches = -(-len(missing) // batch)
+            shared_iij = None
+            with self._profiled(device):
+                for i0 in range(0, len(missing), batch):
+                    chunk = missing[i0:i0 + batch]
+                    run_config = dataclasses.replace(
+                        config, k_values=tuple(chunk))
+                    out, chunk_entries = self._run(
+                        X, run_config, clusterer, is_host, ckpt,
+                        metrics_logger, shared_iij)
+                    if config.store_matrices and shared_iij is None:
+                        shared_iij = chunk_entries[chunk[0]]["iij"]
+                    entries.update(chunk_entries)
+                    timings.append(out["timing"])
+                    if "streaming" in out:
+                        streaming_infos.append(out["streaming"])
+                    metrics_logger.emit(
+                        "k_batch_complete",
+                        batch=i0 // batch + 1,
+                        n_batches=n_batches,
+                        k_values=[int(k) for k in chunk],
+                        run_seconds=float(out["timing"]["run_seconds"]),
+                        resamples_per_second=float(
+                            out["timing"]["resamples_per_second"]),
+                    )
+        self._build_results(entries, config, loaded, timings)
+        if streaming_infos:
+            self.metrics_["streaming"] = streaming_infos[-1]
+            if len(streaming_infos) > 1:
+                self.metrics_["streaming_batches"] = streaming_infos
+        metrics_logger.emit("sweep_complete", **{
+            **self.metrics_,
+            "n_samples": n,
+            "k_values": [int(k) for k in config.k_values],
+            "n_iterations": config.n_iterations,
+            "resumed_ks": sorted(int(k) for k in loaded),
+            "pac_area": {int(k): float(v["pac_area"])
+                         for k, v in self.cdf_at_K_data.items()},
+            "best_k": self.best_k_,
+        })
         return self
 
-    def _run(self, X, config: SweepConfig, ckpt):
-        """Sweep ``config``'s Ks: the sweep's ``out`` and its per-K
-        entries, each saved to ``ckpt`` as soon as the sweep returns (and
-        only then is the block ring cleared)."""
-        clusterer = self._resolve_clusterer()
+    def _log_host_ignores(self):
+        if self.stream_h_block is not None:
+            logger.info(
+                "stream_h_block is a device-path feature; the host backend "
+                "labels resamples in a Python loop — running the host sweep "
+                "normally"
+            )
+        if self.accum_repr != "dense":
+            logger.info(
+                "accum_repr is a device-path feature; the host backend "
+                "accumulates dense counts — running the host sweep normally"
+            )
+        if self.progress_callback is not None:
+            logger.warning(
+                "progress_callback is a device-path feature and this "
+                "clusterer runs on the host backend: the callback will not "
+                "fire (use progress=True for host-side per-K progress bars)"
+            )
+
+    @contextlib.contextmanager
+    def _profiled(self, device):
+        """A ``torch.profiler`` trace into ``profile_dir`` around the
+        sweep (nothing without it)."""
+        if self.profile_dir is None:
+            yield
+            return
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(
+                         self.profile_dir)):
+            yield
+
+    def _run(self, X, config: SweepConfig, clusterer, is_host: bool, ckpt,
+             metrics_logger: MetricsLogger, shared_iij=None):
+        """Sweep one batch of ``config``'s Ks: the sweep's ``out`` and its
+        per-K entries, each saved to ``ckpt`` as soon as the sweep returns
+        (and only then is the block ring cleared)."""
         ring = None
-        if config.stream_h_block is None:
+        if is_host:
+            from consensus_clustering_tpu_torch.parallel.host import (
+                run_host_sweep,
+            )
+
+            out = run_host_sweep(clusterer, config, X, self.random_state,
+                                 progress=self.progress, n_jobs=self.n_jobs,
+                                 device=self.device)
+        elif config.stream_h_block is None:
             from consensus_clustering_tpu_torch.parallel.sweep import (
                 run_sweep,
             )
@@ -331,13 +579,18 @@ class ConsensusClustering:
                 StreamCheckpointer,
             )
 
+            def block_cb(block, h_done, pac):
+                metrics_logger.emit("h_block_complete", block=block,
+                                    h_done=h_done, pac_area=pac)
+
             if self.checkpoint_dir is not None:
                 ring = StreamCheckpointer(
                     os.path.join(self.checkpoint_dir, "stream"))
             try:
                 out = run_streaming_sweep(
                     clusterer, config, X, self.random_state,
-                    device=self.device, checkpointer=ring,
+                    device=self.device, block_callback=block_cb,
+                    checkpointer=ring,
                 )
             finally:
                 # Closed whatever happens; cleared only after the per-K
@@ -347,7 +600,7 @@ class ConsensusClustering:
             if self.progress_callback is not None:
                 for i, k in enumerate(config.k_values):
                     self.progress_callback(int(k), float(out["pac_area"][i]))
-        entries = self._entries(out, config)
+        entries = self._entries(out, config, shared_iij)
         if ckpt is not None:
             for k in config.k_values:
                 ckpt.save_k(k, entries[k])
@@ -355,11 +608,16 @@ class ConsensusClustering:
                 ring.clear()
         return out, entries
 
-    def _entries(self, out: Dict[str, Any], config: SweepConfig):
-        """Per-K result entries (the reference's schema) of one sweep."""
+    def _entries(self, out: Dict[str, Any], config: SweepConfig,
+                 shared_iij=None):
+        """Per-K result entries (the reference's schema) of one sweep;
+        ``shared_iij`` is an earlier batch's host Iij (the same matrix)."""
         acc_dtype = self._accumulator_dtype()
         edges = bin_edges(config.bins)
-        iij = out["iij"].astype(acc_dtype) if config.store_matrices else None
+        iij = None
+        if config.store_matrices:
+            iij = (shared_iij if shared_iij is not None
+                   else out["iij"].astype(acc_dtype))
         entries = {}
         for i, k in enumerate(config.k_values):
             entry = {
@@ -377,13 +635,24 @@ class ConsensusClustering:
             entries[k] = entry
         return entries
 
-    def _build_results(self, out: Optional[Dict[str, Any]],
-                       entries: Dict[int, Dict[str, Any]],
+    def _consensus_labels(self, cij, k: int) -> np.ndarray:
+        from consensus_clustering_tpu_torch.models.agglomerative import (
+            consensus_labels_from_cij,
+        )
+
+        return consensus_labels_from_cij(
+            cij, k, linkage=self.agg_clustering_linkage, method="auto",
+            seed=int(self.random_state), device=self.device,
+        )
+
+    def _build_results(self, entries: Dict[int, Dict[str, Any]],
                        config: SweepConfig,
-                       loaded: Dict[int, Dict[str, np.ndarray]]):
-        """``cdf_at_K_data`` in ``config``'s K order from the sweep's
-        ``entries`` and the ``loaded`` checkpoints; ``metrics_`` of the
-        sweep's ``out``, or of a fit resumed in full (``out`` None)."""
+                       loaded: Dict[int, Dict[str, np.ndarray]],
+                       timings: list):
+        """``cdf_at_K_data`` in ``config``'s K order from the batches'
+        ``entries`` and the ``loaded`` checkpoints, consensus labels if
+        asked for, and ``metrics_`` of the batches' ``timings`` (or of a fit
+        resumed in full, when there are none)."""
         edges = bin_edges(config.bins)
         entries = dict(entries)
         for k, saved in loaded.items():
@@ -397,6 +666,20 @@ class ConsensusClustering:
                 "iij": saved.get("iij"),
                 "cij": saved.get("cij"),
             }
+        if self.compute_consensus_labels:
+            from consensus_clustering_tpu_torch.ops.analysis import (
+                cluster_consensus,
+                item_consensus,
+            )
+
+            for k, entry in entries.items():
+                if entry["cij"] is not None:
+                    labels = self._consensus_labels(entry["cij"], k)
+                    entry["consensus_labels"] = labels
+                    entry["cluster_consensus"] = cluster_consensus(
+                        entry["cij"], labels)
+                    entry["item_consensus"] = item_consensus(
+                        entry["cij"], labels)
         entries = {k: entries[k] for k in config.k_values}
         self.cdf_at_K_data = entries
         ks = list(config.k_values)
@@ -411,7 +694,7 @@ class ConsensusClustering:
             delta_k_gains=self.delta_k_,
             delta_k_threshold=self.delta_k_threshold,
         )
-        if out is None:
+        if not timings:
             # Resumed in full: no compute ran, so there is no rate (None,
             # not inf: json.dumps would write the non-standard Infinity).
             self.metrics_ = {
@@ -420,25 +703,61 @@ class ConsensusClustering:
                 "resumed_from_checkpoint": True,
             }
             return
-        timing = out["timing"]
+        run_seconds = sum(t["run_seconds"] for t in timings)
+        n_fresh = sum(1 for k in ks if k not in loaded)
+        launches = {}
+        for t in timings:
+            for name, count in t["kernel_launches"].items():
+                launches[name] = launches.get(name, 0) + count
         self.metrics_ = {
-            "compile_seconds": timing["compile_seconds"],
-            "run_seconds": timing["run_seconds"],
-            "resamples_per_second": timing["resamples_per_second"],
-            "n_batches": 1,
-            "device": timing["device"],
-            "kernel_launches": timing["kernel_launches"],
+            "compile_seconds": sum(t["compile_seconds"] for t in timings),
+            "run_seconds": run_seconds,
+            "resamples_per_second": (
+                config.n_iterations * n_fresh / max(run_seconds, 1e-9)),
+            "n_batches": len(timings),
+            "device": timings[-1]["device"],
+            "kernel_launches": launches,
         }
         if loaded:
             self.metrics_["resumed_ks"] = sorted(int(k) for k in loaded)
-        if timing["device_memory"]:
-            self.metrics_["device_memory"] = timing["device_memory"]
+        memories = [t["device_memory"] for t in timings if t["device_memory"]]
+        if memories:
+            self.metrics_["device_memory"] = max(
+                memories, key=lambda m: m["peak_bytes_in_use"])
+        for key in ("label_seconds_per_k", "accumulate_seconds_per_k"):
+            if key in timings[-1]:  # the host backend's split, per K
+                self.metrics_[key] = [s for t in timings for s in t[key]]
         strategy = {
-            key: timing[key]
+            key: timings[-1][key]
             for key in ("packed_kernel", "fuse_block", "fused_kernel")
-            if key in timing
+            if key in timings[-1]
         }
         if strategy:
             self.metrics_["timing"] = strategy
-        if "streaming" in out:
-            self.metrics_["streaming"] = out["streaming"]
+
+    def fit_predict(self, X) -> np.ndarray:
+        """Fit, then return the consensus labels at ``best_k_``: exact
+        agglomeration of ``1 - Cij`` up to 4096 items, spectral clustering
+        of Cij above.  Needs the consensus matrices (``store_matrices``
+        must not resolve to False)."""
+        X = np.asarray(X)
+        if X.ndim == 2 and not self._resolve_store_matrices(X.shape[0]):
+            # Fail before the sweep, not after it.
+            raise ValueError(
+                "fit_predict needs the consensus matrices; pass "
+                "store_matrices=True"
+            )
+        self.fit(X)
+        entry = self.cdf_at_K_data[self.best_k_]
+        if len(entry["consensus_labels"]):
+            return np.asarray(entry["consensus_labels"])
+        if entry["cij"] is None:
+            raise ValueError(
+                "consensus matrices unavailable for the selected K — this "
+                "fit was resumed from checkpoints written with "
+                "store_matrices=False; use a fresh checkpoint_dir (or "
+                "delete the stale per-K files) and refit"
+            )
+        labels = self._consensus_labels(entry["cij"], self.best_k_)
+        entry["consensus_labels"] = labels
+        return np.asarray(labels)

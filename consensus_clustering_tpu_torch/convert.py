@@ -14,7 +14,12 @@ import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.agglomerative import (
+    AgglomerativeClustering,
+)
+from consensus_clustering_tpu_torch.models.gmm import GaussianMixture
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.models.spectral import SpectralClustering
 
 # Reference SweepConfig fields with their defaults that this port can run
 # only at those defaults (each belongs to a feature not ported yet).
@@ -54,6 +59,32 @@ def kmeans_from_jax(fields: Dict[str, Any]) -> KMeans:
         max_iter=int(fields.get("max_iter", 100)),
         tol=float(fields.get("tol", 1e-4)),
     )
+
+
+_CLUSTERERS = {
+    "GaussianMixture": GaussianMixture,
+    "AgglomerativeClustering": AgglomerativeClustering,
+    "SpectralClustering": SpectralClustering,
+}
+
+
+def clusterer_from_jax(name: str, fields: Dict[str, Any]):
+    """The port's clusterer of the reference class ``name`` (``KMeans``,
+    ``GaussianMixture``, ``AgglomerativeClustering`` or
+    ``SpectralClustering``) from ``dataclasses.asdict`` of the reference's;
+    raises for a field the port's class does not have."""
+    if name == "KMeans":
+        return kmeans_from_jax(fields)
+    if name not in _CLUSTERERS:
+        raise ValueError(
+            f"unknown clusterer {name!r}; choose KMeans or one of "
+            f"{sorted(_CLUSTERERS)}"
+        )
+    cls = _CLUSTERERS[name]
+    unknown = set(fields) - set(cls.__dataclass_fields__)
+    if unknown:
+        raise ValueError(f"{name} has no field(s) {sorted(unknown)}")
+    return cls(**fields)
 
 
 def key_from_jax(key_data: np.ndarray, device=None) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Consensus-matrix analysis: Cij, histogram/CDF, PAC, Delta(K), best K.
+"""Consensus-matrix analysis: Cij, histogram/CDF, PAC, Delta(K), best K,
+and Monti's per-cluster and per-item consensus.
 
 Reference semantics (the reference package's ``ops/analysis.py``):
 ``Cij = Mij / (Iij + 1e-6)`` in f32 with the diagonal forced to 1.0; a
@@ -21,7 +22,7 @@ __all__ = [
     "consensus_matrix", "hist_edges", "device_edges", "device_scalar",
     "masked_histogram_counts",
     "cdf_pac_from_counts", "pac_indices", "bin_edges", "area_under_cdf",
-    "delta_k", "select_best_k",
+    "delta_k", "select_best_k", "cluster_consensus", "item_consensus",
 ]
 
 
@@ -126,6 +127,48 @@ def area_under_cdf(cdf: np.ndarray) -> np.ndarray:
     """Monti's A(K): area under the binned consensus CDF, sum(cdf) * dbin."""
     cdf = np.asarray(cdf)
     return np.sum(cdf, axis=-1) / cdf.shape[-1]
+
+
+def cluster_consensus(cij: np.ndarray, labels: np.ndarray) -> np.ndarray:
+    """Monti's per-cluster consensus m(k) (Monti et al. 2003, eq. 6).
+
+    The mean of Cij over the distinct pairs (i < j) both labelled k; NaN
+    for a cluster with fewer than two members.  Host numpy, after the
+    sweep; the result equals the reference package's.
+    """
+    cij = np.asarray(cij, dtype=np.float64)
+    labels = np.asarray(labels)
+    ks = np.unique(labels[labels >= 0])
+    member = (labels[None, :] == ks[:, None]).astype(np.float64)  # (K, N)
+    # Ordered pairs within k minus the diagonal, halved: the distinct pairs.
+    ordered = np.einsum("ki,ij,kj->k", member, cij, member)
+    diag = member @ np.diagonal(cij)
+    pair_sums = (ordered - diag) / 2.0
+    sizes = member.sum(axis=1)
+    pair_counts = sizes * (sizes - 1) / 2.0
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(pair_counts > 0, pair_sums / pair_counts, np.nan)
+
+
+def item_consensus(cij: np.ndarray, labels: np.ndarray) -> np.ndarray:
+    """Monti's item consensus m_i(k) (Monti et al. 2003, eq. 7).
+
+    (N, n_clusters): the mean of Cij[i, j] over the members j != i of
+    cluster k; NaN where k has no member other than i.  Host numpy; the
+    result equals the reference package's.
+    """
+    cij = np.asarray(cij, dtype=np.float64)
+    labels = np.asarray(labels)
+    n = cij.shape[0]
+    ks = np.unique(labels[labels >= 0])
+    member = labels[None, :] == ks[:, None]  # (K, N)
+    sums = cij @ member.T  # (N, K)
+    counts = member.sum(axis=1)[None, :].astype(np.float64)  # (1, K)
+    self_in_k = member.T[np.arange(n), :]  # (N, K) bool
+    sums = sums - np.where(self_in_k, np.diagonal(cij)[:, None], 0.0)
+    counts = counts - self_in_k.astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(counts > 0, sums / counts, np.nan)
 
 
 def delta_k(areas: np.ndarray) -> np.ndarray:

@@ -16,7 +16,9 @@ port draws the same subsamples and the same k-means++ candidates:
 
 No global torch RNG state is read or written anywhere.  ``log`` differs
 between torch and XLA in the last ulp for some inputs, so ``gumbel`` (and
-through it ``categorical``) agrees with JAX on almost all draws, not all.
+through it ``categorical``) agrees with JAX on almost all draws, not all;
+``normal`` shares its uniforms with JAX bit for bit and agrees to ~1e-5
+relative (XLA's float32 ``erf_inv`` is coarser in the tails).
 """
 
 from __future__ import annotations
@@ -156,6 +158,22 @@ def uniform(
     lo = torch.tensor(minval, dtype=dtype, device=keys.device)
     hi = torch.tensor(maxval, dtype=dtype, device=keys.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(
+    keys: torch.Tensor, shape: Shape, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """``jax.random.normal``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform in
+    (-1, 1), drawn as :func:`uniform` from ``nextafter(-1, 0)`` to 1.
+
+    The uniform draws are JAX's bit for bit; ``erfinv`` is torch's, which
+    differs from XLA's float32 ``erf_inv`` by up to ~1e-5 relative.
+    """
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0), dtype=np_dtype))
+    u = uniform(keys, shape, dtype, lo, 1.0)
+    scale = torch.tensor(math.sqrt(2.0), dtype=dtype, device=keys.device)
+    return scale * torch.erfinv(u)
 
 
 def gumbel(

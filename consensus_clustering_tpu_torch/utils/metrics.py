@@ -1,10 +1,15 @@
-"""Device memory statistics for run metrics."""
+"""Run metrics: JSON-lines events and device memory statistics."""
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import logging
+import time
+from typing import Any, Dict, Optional
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def device_memory_stats(device=None) -> Dict[str, int]:
@@ -24,3 +29,25 @@ def device_memory_stats(device=None) -> Dict[str, int]:
         "bytes_limit": int(total),
         "bytes_free": int(free),
     }
+
+
+class MetricsLogger:
+    """Append structured events to a JSON-lines file and to the log.
+
+    Each event is one line ``{"ts": <unix>, "event": <name>, ...fields}``;
+    ``path=None`` logs only.  With a file the log mirror is at DEBUG,
+    without one at INFO.
+    """
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.log_level = logging.DEBUG if path else logging.INFO
+
+    def emit(self, event: str, **fields: Any) -> Dict[str, Any]:
+        record = {"ts": round(time.time(), 3), "event": event, **fields}
+        line = json.dumps(record, default=float, sort_keys=True)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(line + "\n")
+        logger.log(self.log_level, "metrics: %s", line)
+        return record

@@ -352,3 +352,163 @@ def test_kill_and_resume_on_the_card_equals_uninterrupted(cuda, tmp_path):  # ja
     assert got["streaming"]["integrity_checks"] == 2
     for name in ("hist", "cdf", "pac_area", "mij", "iij", "cij"):
         np.testing.assert_array_equal(got[name], ref[name])
+
+
+def _fits_on_both(x, **kwargs):
+    from consensus_clustering_tpu_torch import ConsensusClustering
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    fits, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_launch_counts()
+        fits[dev] = ConsensusClustering(device=dev, store_matrices=True,
+                                        progress=False, **kwargs).fit(x)
+        launches[dev] = launch_counts()
+    return fits, launches
+
+
+def _assert_card_matches_cpu(fits, ks, exact_mij=False):
+    gpu, cpu = fits["cuda"].cdf_at_K_data, fits["cpu"].cdf_at_K_data
+    np.testing.assert_array_equal(gpu[ks[0]]["iij"], cpu[ks[0]]["iij"])
+    for k in ks:
+        if exact_mij:
+            np.testing.assert_array_equal(gpu[k]["mij"], cpu[k]["mij"])
+        assert abs(gpu[k]["pac_area"] - cpu[k]["pac_area"]) <= 0.02
+
+
+def test_gmm_on_the_card_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    from consensus_clustering_tpu_torch import GaussianMixture, make_blobs
+
+    x, _ = make_blobs(n_samples=200, n_features=4, centers=3,
+                      cluster_std=1.5, random_state=2)
+    fits, launches = _fits_on_both(
+        x.astype(np.float32), clusterer=GaussianMixture(n_init=2),
+        clusterer_options={}, K_range=(2, 3, 4), n_iterations=20,
+        random_state=3)
+    _assert_card_matches_cpu(fits, (2, 3, 4))
+    assert launches["cuda"]["lloyd"] > 0 and launches["cuda"]["assign"] > 0
+    assert launches["cuda"]["hist"] == 3
+    assert launches["cpu"] == dict.fromkeys(launches["cpu"], 0)
+
+
+def test_gmm_nan_lane_on_the_card(cuda):
+    from consensus_clustering_tpu_torch.models.gmm import GaussianMixture
+
+    rs = np.random.default_rng(0)
+    centres = np.repeat(rs.normal(size=(3, 4)).astype(np.float32) * 5, 10, 0)
+    x = np.stack([centres, centres + rs.normal(size=(30, 4)).astype(
+        np.float32)])
+    labels0 = torch.tensor(np.tile(np.repeat(np.arange(3), 10), (2, 1)))
+    gmm = GaussianMixture(reg_covar=0.0)
+    got = gmm.em(torch.tensor(x, device=cuda), labels0.to(cuda), 3, 4)
+    ref = gmm.em(torch.tensor(x), labels0, 3, 4)
+    assert torch.isnan(got[1][0]) and torch.isfinite(got[1][1])
+    np.testing.assert_array_equal(got[0].cpu().numpy(), ref[0].numpy())
+
+
+def test_agglomerative_on_the_card_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    from consensus_clustering_tpu_torch import (
+        AgglomerativeClustering,
+        load_corr,
+    )
+    from consensus_clustering_tpu_torch.models.agglomerative import (
+        agglomerate,
+    )
+
+    fits, launches = _fits_on_both(
+        load_corr(transform=True),
+        clusterer=AgglomerativeClustering("average"), K_range=(2, 3, 4, 5),
+        n_iterations=40, random_state=23)
+    _assert_card_matches_cpu(fits, (2, 3, 4, 5))
+    assert launches["cuda"]["hist"] == 4
+    # The same tie-heavy distances: labels identical on both devices (the
+    # argmin takes the lowest flat index on the card too).
+    rs = np.random.default_rng(3)
+    m = rs.integers(0, 6, size=(4, 40, 40))
+    m = np.minimum(m, m.transpose(0, 2, 1))
+    dist = torch.tensor(1.0 - m / 5.0, dtype=torch.float32)
+    for linkage in ("single", "complete", "average", "ward"):
+        for k in (2, 7):
+            got = agglomerate(dist.to(cuda), k, linkage).cpu()
+            assert torch.equal(got, agglomerate(dist, k, linkage))
+
+
+class _HostLloyd:
+    """A numpy host clusterer, so that the test needs no sklearn."""
+
+    def fit_predict_host(self, seed, x, k):
+        x = np.asarray(x, np.float64)
+        centres = x[np.random.RandomState(seed).choice(len(x), k, False)]
+        for _ in range(100):
+            labels = ((x[:, None] - centres[None]) ** 2).sum(-1).argmin(1)
+            new = np.stack([x[labels == j].mean(0) if (labels == j).any()
+                            else centres[j] for j in range(k)])
+            if np.array_equal(new, centres):
+                break
+            centres = new
+        return labels.astype(np.int32)
+
+
+def test_host_backend_on_the_card_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    from consensus_clustering_tpu_torch import load_corr
+
+    fits, launches = _fits_on_both(
+        load_corr(transform=True), clusterer=_HostLloyd(),
+        K_range=(2, 3, 4), n_iterations=20, random_state=23)
+    _assert_card_matches_cpu(fits, (2, 3, 4), exact_mij=True)
+    assert launches["cuda"]["hist"] == 3
+    assert launches["cuda"]["lloyd"] == 0  # labels on the host
+
+
+def test_spectral_on_the_card(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    """The three blobs are disconnected in the affinity graph, so the top
+    eigenvalue has multiplicity 3.  At K=3 the embedding spans that whole
+    eigenspace and the labels are determined: Mij equal to the CPU's.  At
+    K=2 it takes two columns of an arbitrary basis of it, which rounding
+    picks (one ulp of input moves PAC there on the CPU alone,
+    ``tests/test_torch_models.py::test_spectral_rounding_picks_the_basis_
+    below_the_component_count``), so K=2 is held to nothing across
+    devices."""
+    from consensus_clustering_tpu_torch import SpectralClustering, make_blobs
+
+    x, _ = make_blobs(n_samples=300, n_features=5, centers=3,
+                      cluster_std=1.0, random_state=1)
+    fits, launches = _fits_on_both(
+        x.astype(np.float32),
+        clusterer=SpectralClustering(gamma=0.2, solver="lobpcg"),
+        K_range=(2, 3, 4), n_iterations=10, random_state=5)
+    _assert_card_matches_cpu(fits, (3, 4))
+    np.testing.assert_array_equal(fits["cuda"].cdf_at_K_data[3]["mij"],
+                                  fits["cpu"].cdf_at_K_data[3]["mij"])
+    assert np.isfinite(fits["cuda"].cdf_at_K_data[2]["pac_area"])
+    assert launches["cuda"]["lloyd"] > 0 and launches["cuda"]["assign"] > 0
+
+
+def test_clusterers_group_invariantly_on_the_card(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    """Labels are a per-resample function on the card too: cluster_batch
+    groups give the counts of one batch (the spectral eigensolver once
+    did not: a batched QR of one lane rounds apart from a larger batch)."""
+    from consensus_clustering_tpu_torch import (
+        AgglomerativeClustering,
+        ConsensusClustering,
+        GaussianMixture,
+        SpectralClustering,
+        make_blobs,
+    )
+
+    x, _ = make_blobs(n_samples=500, n_features=30, centers=6,
+                      cluster_std=3.0, random_state=0)
+    x = x.astype(np.float32)
+    for clusterer in (GaussianMixture(n_init=2),
+                      AgglomerativeClustering("average"),
+                      SpectralClustering(gamma=0.02, solver="lobpcg")):
+        fits = [ConsensusClustering(
+            clusterer=clusterer, clusterer_options={}, K_range=(2, 4, 6),
+            n_iterations=13, random_state=23, store_matrices=True,
+            cluster_batch=batch, device=cuda).fit(x) for batch in (None, 4)]
+        for k in (2, 4, 6):
+            np.testing.assert_array_equal(fits[0].cdf_at_K_data[k]["mij"],
+                                          fits[1].cdf_at_K_data[k]["mij"])

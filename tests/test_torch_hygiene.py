@@ -4,6 +4,9 @@
   (checked with ``ast`` and in a subprocess where both are poisoned).
 - ``fit`` without ``device`` raises when no GPU is visible.
 - Features not ported yet raise ``NotImplementedError``.
+- The subprocess also drives every clusterer (GMM, agglomerative,
+  spectral, an sklearn estimator on the host backend), ``k_batch_size``,
+  consensus labels and ``fit_predict``.
 - The kernel modules import on the CPU, their wrappers take the plain
   versions there, and the build raises a clear error without ``nvcc``.
 """
@@ -45,6 +48,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "batch_invariance.py")
 
 
 def _forbidden(name):
@@ -85,6 +89,17 @@ assert st.metrics_["timing"] == {"packed_kernel": "plain",
                                  "fuse_block": "fused", "fused_kernel": "plain"}
 assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"], st.cdf_at_K_data[k]["mij"])
            for k in (2, 3))
+from sklearn.cluster import KMeans as SkKMeans
+from consensus_clustering_tpu_torch import (
+    AgglomerativeClustering, GaussianMixture, SpectralClustering)
+for clusterer in (GaussianMixture(), AgglomerativeClustering(),
+                  SpectralClustering(solver="lobpcg"), SkKMeans(n_init=1)):
+    other = ConsensusClustering(clusterer=clusterer, K_range=(2, 3),
+                                n_iterations=4, random_state=0, device="cpu",
+                                progress=False, k_batch_size=1,
+                                store_matrices=True,
+                                compute_consensus_labels=True)
+    assert len(other.fit_predict(x)) == 60
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -119,7 +134,7 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 @pytest.mark.parametrize(
     "kwargs",
     [dict(mesh=object()), dict(mode="auto"), dict(mode="estimate"),
-     dict(compute_consensus_labels=True), dict(autotune=True),
+     dict(k_interleave=True), dict(autotune=True),
      dict(plot_cdf=True)],
 )
 def test_unported_features_raise(kwargs):
@@ -128,11 +143,14 @@ def test_unported_features_raise(kwargs):
 
 
 def test_sklearn_clusterer_raises():  # jaxlint: disable=JL018 -- raises before any sweep
-    from sklearn.cluster import KMeans as SkKMeans
+    """An sklearn estimator runs on the host backend; one without a
+    cluster count (``n_clusters``/``n_components``) raises, as in the
+    reference."""
+    from sklearn.cluster import DBSCAN
 
-    cc = ConsensusClustering(clusterer=SkKMeans(), K_range=(2, 3),
+    cc = ConsensusClustering(clusterer=DBSCAN(), K_range=(2, 3),
                              random_state=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(AttributeError, match="n_clusters nor n_components"):
         cc.fit(np.random.default_rng(0).normal(size=(20, 3)))
 
 
