@@ -89,7 +89,38 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   spectral regime above 4096 items: PAC equal to the pinned
                   0.0, ARI against the blobs' truth >= 0.95) and ``k_batch``
                   (the stream_small fit in batches of 2 Ks equal to one
-                  batch bit for bit).
+                  batch bit for bit);
+11. estimate    — the sampled-pair estimator at its own scale through the
+                  API: the headline generator at N=100,000, H=100,
+                  K=2..20, ``mode="auto"`` (it must resolve to
+                  ``estimate`` against the card's own memory),
+                  ``stream_h_block=100``, packed pairs, 2^17 pairs,
+                  ``exact_best_k``: PAC in [0, 1], best K 8, the refined
+                  K=8 PAC within the disclosed bound of the estimate, B2
+                  and the assignment launched in the estimate, B3 and B1's
+                  count entry in the refinement; prints run and refine
+                  seconds, resamples/s and peak device memory;
+12. estimate_check — the estimator on the headline data (N=5000, H=100,
+                  blocks of 50): every sampled pair's counts equal the
+                  packed stream's captured planes at the pair (dense and
+                  packed pair paths), the PAC error under the disclosed
+                  bound per K, and a run cut by ``block_start=1`` resumed
+                  from the ring bit for bit;
+13. refine      — ``exact_curves_for_k`` at the headline (N=5000, H=500,
+                  K=8): PAC equal to ``PINNED_PAC``, the CDF equal to the
+                  headline's, the kernel route equal to the plain route on
+                  the card;
+14. append      — a parent of the headline blobs' first 4,000 rows
+                  (H=400, packed, fused) bootstrapped into a plane store,
+                  then all 5,000 rows appended with 100 new resamples:
+                  Iij accounting exact, merged curves on the card equal to
+                  the plain route on the card, generation 1 reloads and
+                  verifies, no refresh recommended; prints the append's
+                  seconds beside the from-scratch stream's.
+                  The ``kernels`` phase also holds B2 and the assignment
+                  at the estimator's 48 lanes of 80,000 rows, and B3 and
+                  B1's count entry at the refinement's 2,048 x 100,000
+                  tiles.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -114,7 +145,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
-          "stream_small", "resilience_small", "corr", "clusterers")
+          "stream_small", "resilience_small", "corr", "clusterers",
+          "estimate", "estimate_check", "refine", "append")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -352,6 +384,7 @@ def phase_kernels(torch, results):
     kernels_lloyd_assign(torch, results)
     kernels_popcount(torch, results)
     kernels_fused(torch, results)
+    kernels_estimate_shapes(torch, results)
 
 
 def kernels_hist(torch, results):
@@ -1764,6 +1797,469 @@ def phase_clusterers(torch, results):
     emit({"phase": "clusterers", "seconds": time.perf_counter() - t_phase})
 
 
+# -- the estimator and append (ROADMAP A9 + A11) --------------------------
+
+ESTIMATE_N = 100_000
+ESTIMATE_H = 100
+
+
+def estimate_data():
+    """The headline generator (``bench.py:41-49``) at N = 100,000."""
+    from consensus_clustering_tpu_torch import make_blobs
+
+    x, _ = make_blobs(n_samples=ESTIMATE_N, n_features=50, centers=8,
+                      cluster_std=3.0, random_state=0)
+    return x.astype(np.float32)
+
+
+def kernels_estimate_shapes(torch, results):
+    """The kernels at the shapes the estimator and its refinement give
+    them at N = 100,000, each exact against its plain version on the card:
+    B2 and the final assignment on 16 resamples x n_init 3 (48 lanes) of
+    80,000 x 50 rows drawn with the port's plan from the N = 100,000 blobs,
+    k = k_max = 20; B3 at 32 words (K = 8's cluster planes of 4 words) x
+    2,048 rows x 100,000 columns; B1's count entry on a 2,048 x 100,000
+    int32 tile whose row_offset (49,152) lies in the middle of the
+    triangle.  Random words include bit 31; the count tile is bimodal,
+    as at the blobs' K."""
+    from consensus_clustering_tpu_torch import rng
+    from consensus_clustering_tpu_torch.ops import fused_block, hist, lloyd
+    from consensus_clustering_tpu_torch.ops import popcount
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        popcount_accumulate,
+    )
+    from consensus_clustering_tpu_torch.ops.resample import resample_indices
+
+    n, n_sub, d, k_max = ESTIMATE_N, 80_000, 50, 20
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x_all = torch.tensor(estimate_data(), device="cuda")
+    idx = resample_indices(rng.prng_key(23, "cuda"), n, 16, n_sub)
+    xs = x_all[idx]
+    src = torch.arange(16, device="cuda",
+                       dtype=torch.int32).repeat_interleave(3)
+    lanes = src.shape[0]
+    cents = xs[src.long()[:, None], torch.randint(
+        0, n_sub, (lanes, k_max), generator=g, device="cuda")]
+    got = lloyd.lloyd_step_kernel(xs, src, cents, k_max)
+    ref = lloyd.lloyd_step_ordered_plain(xs, src, cents, k_max)
+    lab, dmin = fused_block.assign_labels_kernel(xs, src, cents, k_max)
+    lab_p, dmin_p = fused_block.assign_labels_plain(xs, src, cents, k_max)
+    torch.cuda.synchronize()
+    l_same = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    a_same = bool(torch.equal(lab, lab_p) and torch.equal(dmin, dmin_p))
+    l_err = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, ref))
+    check(all(l_same), f"lloyd != ordered plain at 80,000 rows: {l_same}")
+    check(a_same, "assign kernel != plain at 80,000 rows")
+    rows = n_sub
+    lloyd_bound = bound_ms(
+        4 * (16 * rows * d + lanes * k_max * d + lanes
+             + lanes * k_max * (d + 2)),
+        lanes * rows * (2 * d * k_max + 3 * k_max + 3 * d))
+    assign_bound = bound_ms(
+        4 * (16 * rows * d + lanes * k_max * d + lanes + 2 * lanes * rows),
+        lanes * rows * (k_max * (2 * d + 3) + 2 * d))
+    for name, fn, plain, bound, same, err in (
+            ("lloyd", lloyd.lloyd_step_kernel, lloyd.lloyd_step_plain,
+             lloyd_bound, all(l_same), l_err),
+            ("assign", fused_block.assign_labels_kernel,
+             fused_block.assign_labels_plain, assign_bound, a_same,
+             float((dmin - dmin_p).abs().max()))):
+        timing = {
+            "shape": [lanes, rows, d, k_max],
+            "ms": device_ms(torch, lambda: fn(xs, src, cents, k_max), 10),
+            "plain_ms": cuda_ms(torch, lambda: plain(xs, src, cents, k_max),
+                                2),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "equal_plain": same, "max_abs_err": err}
+        results[name]["estimate_shape"] = timing
+        emit({"phase": "kernels", "kernel": name,
+              "case": "estimator lanes, 80,000 rows", **timing})
+    del xs, x_all, cents, got, ref
+
+    # B3 and B1's count entry at the refinement's tiles.
+    n_words, tile = 32, 2048
+    cols = torch.randint(-2**31, 2**31 - 1, (n_words, n), generator=g,
+                         device="cuda", dtype=torch.int32)
+    r0 = 49_152
+    rows_w = cols[:, r0:r0 + tile]
+
+    def pop_plain(a, b, chunk=12_500):
+        return torch.cat([popcount_accumulate(a, b[:, c:c + chunk])
+                          for c in range(0, b.shape[1], chunk)], dim=1)
+
+    got = popcount.packed_coassoc_counts_kernel(rows_w, cols)
+    ref = pop_plain(rows_w, cols)
+    torch.cuda.synchronize()
+    err = int((got.long() - ref.long()).abs().max())
+    check(err == 0, "popcount kernel != plain at 2,048 x 100,000")
+    del got, ref
+    b_ms, b_by = bound_ms(4 * (n_words * (tile + n) + tile * n),
+                          n_words * tile * n, POPC_PER_S)
+    timing = {"shape": [n_words, tile, n],
+              "ms": device_ms(torch, lambda: popcount.
+                              packed_coassoc_counts_kernel(rows_w, cols), 5),
+              "plain_ms": cuda_ms(torch, lambda: pop_plain(rows_w, cols), 1),
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    results["popcount"]["refine_tile"] = timing
+    emit({"phase": "kernels", "kernel": "popcount",
+          "case": "refinement Mij tile, 100,000 columns", **timing})
+    del cols, rows_w
+
+    mij, iij = count_tiles(torch, tile, n, 8, "bimodal")
+    bins = 20
+    out_k = torch.zeros(bins, dtype=torch.int64, device="cuda")
+    out_p = torch.zeros(bins, dtype=torch.int64, device="cuda")
+    hist.consensus_hist_from_counts_kernel(mij, iij, n, r0, bins, out_k)
+    hist.consensus_hist_from_counts_plain(mij, iij, n, r0, bins, out_p)
+    torch.cuda.synchronize()
+    err = int((out_k - out_p).abs().max())
+    pairs = sum(n - 1 - (r0 + r) for r in range(tile))
+    check(err == 0 and int(out_k.sum()) == pairs,
+          f"hist count entry != plain at 2,048 x 100,000: "
+          f"{out_k.tolist()} vs {out_p.tolist()} ({pairs} pairs)")
+    b_ms, b_by = bound_ms(pairs * 8 + (bins + 1) * 4 + bins * 8,
+                          pairs * (3 + math.ceil(math.log2(bins)) + 4))
+    timing = {"shape": [tile, n], "row_offset": r0, "counted": pairs,
+              "ms": device_ms(torch, lambda: hist.
+                              consensus_hist_from_counts_kernel(
+                                  mij, iij, n, r0, bins, out_k), 5),
+              "plain_ms": cuda_ms(torch, lambda: hist.
+                                  consensus_hist_from_counts_plain(
+                                      mij, iij, n, r0, bins, out_p), 1),
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    results["hist"]["refine_tile"] = timing
+    emit({"phase": "kernels", "kernel": "hist", "entry": "counts",
+          "case": "refinement tile, 100,000 columns", **timing})
+    del mij, iij
+    torch.cuda.empty_cache()
+
+
+def phase_estimate(torch, results):
+    """The estimator at its own scale, through the API: ``mode="auto"``
+    on the N = 100,000 blobs, H = 100, K = 2..20, KMeans(n_init=3),
+    ``cluster_batch=16``, ``chunk_size=4``, ``stream_h_block=100``,
+    ``accum_repr="packed"``, the default ``n_pairs`` (2^17) and
+    ``exact_best_k=True``, with the launch counts set to 0 just before."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    x = estimate_data()
+    ks = list(range(2, 21))
+    cc = ConsensusClustering(
+        K_range=ks, n_iterations=ESTIMATE_H, random_state=23, chunk_size=4,
+        cluster_batch=16, mode="auto", stream_h_block=100,
+        accum_repr="packed", exact_best_k=True, device="cuda")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cc.fit(x)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    m = cc.metrics_
+    refine = m.get("exact_best_k", {})
+    est_launches = m["kernel_launches"]
+    ref_launches = refine.get("timing", {}).get("kernel_launches", {})
+    pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
+    bound = m["estimator"]["pac_error_bound"]
+    budget = torch.cuda.get_device_properties(0).total_memory
+    gap = abs(refine.get("pac_area_exact", np.nan)
+              - refine.get("pac_area_estimate", np.nan))
+    h_eff = m["streaming"]["h_effective"]
+    emit({"phase": "estimate", "nvidia_smi": smi_line(),
+          "config": f"make_blobs N={ESTIMATE_N} d=50 centers=8 std=3, "
+                    f"H={ESTIMATE_H}, K=2..20, KMeans(n_init=3), "
+                    "cluster_batch=16, chunk_size=4, stream_h_block=100, "
+                    "accum_repr=packed, mode=auto, exact_best_k, seed 23",
+          "mode": m.get("mode"), "auto": m.get("auto"),
+          "card_total_memory": budget, "wall_seconds": wall,
+          "run_seconds": m["run_seconds"],
+          "resamples_per_second": h_eff * len(ks) / m["run_seconds"],
+          "peak_device_bytes": m.get("device_memory", {}).get(
+              "peak_bytes_in_use"),
+          "refine_seconds": refine.get("timing", {}).get("seconds"),
+          "refine_collect_seconds":
+              refine.get("timing", {}).get("collect_seconds"),
+          "refine_peak_device_bytes": refine.get("timing", {}).get(
+              "device_memory", {}).get("peak_bytes_in_use"),
+          "estimator": m["estimator"], "pac": pac.tolist(),
+          "best_k": cc.best_k_, "exact_best_k": {
+              k: v for k, v in refine.items() if k != "timing"},
+          "refined_gap": gap, "launches": launches,
+          "estimate_launches": est_launches,
+          "refine_launches": ref_launches})
+    check(m.get("mode") == "estimate", f"estimate: mode {m.get('mode')}")
+    check(m.get("auto", {}).get("budget_bytes") == budget
+          and m["auto"]["dense_total_bytes"] > budget,
+          f"estimate: auto did not resolve against the card: {m.get('auto')}")
+    check(bool(np.isfinite(pac).all() and (pac >= 0).all()
+               and (pac <= 1).all()), f"estimate: PAC not in [0, 1]: {pac}")
+    check(0 < bound < 1 and m["estimator"]["n_pairs"] == 2**17,
+          f"estimate: disclosure {m['estimator']}")
+    check(cc.best_k_ == 8, f"estimate: best K {cc.best_k_}, expected 8")
+    check(refine.get("k") == 8 and gap <= bound,
+          f"estimate: refined K=8 PAC {refine} off the estimate by {gap} > "
+          f"{bound}")
+    check(est_launches["lloyd"] > 0 and est_launches["assign"] > 0,
+          f"estimate: B2/assign not launched: {est_launches}")
+    check(ref_launches.get("popcount", 0) > 0
+          and ref_launches.get("hist", 0) > 0,
+          f"estimate: B3/B1' not launched in the refinement: {ref_launches}")
+    check(launches == {name: est_launches[name] + ref_launches[name]
+                       for name in launches},
+          f"estimate: launches {launches} != estimate + refinement")
+    _record_launches(results, "estimate", launches)
+
+
+def _pairs_from_planes(torch, state, pi, pj):
+    """Every K's mij and the iij at the pairs (pi, pj), popcounted from a
+    packed stream's captured planes on the card."""
+    from consensus_clustering_tpu_torch.ops.bitpack import popcount32
+
+    cop = torch.from_numpy(state["coplanes"]).cuda()
+    iij = popcount32(cop[:, pi] & cop[:, pj]).sum(0)
+    mij = []
+    for planes_k in state["planes"]:
+        p = torch.from_numpy(planes_k).cuda()
+        mij.append(popcount32(p[..., pi] & p[..., pj]).sum((0, 1)))
+    return torch.stack(mij).cpu().numpy(), iij.cpu().numpy()
+
+
+def phase_estimate_check(torch, results):
+    """The estimator where exact still runs: the headline data (N = 5000),
+    H = 100, K = 2..20, blocks of 50.  Every sampled pair's counts equal
+    the packed stream's captured planes at that pair (both pair paths),
+    the observed PAC error stays under the disclosed bound, and a run cut
+    by ``block_start`` at block 1 resumes from the ring bit for bit."""
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.estimator.engine import (
+        PairConsensusEngine,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+    )
+    from consensus_clustering_tpu_torch.resilience import (
+        InjectedFault,
+        StreamCheckpointer,
+        faults,
+    )
+
+    x = headline_data()
+    h = 100
+    config = SweepConfig(n_samples=5000, n_features=50,
+                         k_values=tuple(range(2, 21)), n_iterations=h,
+                         store_matrices=False, chunk_size=4,
+                         cluster_batch=16, stream_h_block=50,
+                         accum_repr="packed", fuse_block="auto")
+    t0 = time.perf_counter()
+    stream = StreamingSweep(KMeans(n_init=3), config, device="cuda")
+    stream.warmup()
+    exact = stream.run(x, 23, h, capture_state=True)
+    stream_s = time.perf_counter() - t0
+    runs, seconds = {}, {}
+    for path in ("dense", "packed"):
+        t0 = time.perf_counter()
+        engine = PairConsensusEngine(
+            KMeans(n_init=3), dataclasses.replace(config, accum_repr=path),
+            device="cuda")
+        runs[path] = engine.run(x, 23, h, return_state=True)
+        seconds[path] = time.perf_counter() - t0
+    ps = runs["packed"]["pair_state"]
+    pi = torch.from_numpy(ps["pair_i"]).cuda()
+    pj = torch.from_numpy(ps["pair_j"]).cuda()
+    mij_ref, iij_ref = _pairs_from_planes(torch, exact["final_state"], pi, pj)
+    same = {path: bool(np.array_equal(r["pair_state"]["mij"], mij_ref)
+                       and np.array_equal(r["pair_state"]["iij"], iij_ref))
+            for path, r in runs.items()}
+    bound = runs["packed"]["estimator"]["pac_error_bound"]
+    err = np.abs(runs["packed"]["pac_area"].astype(np.float64)
+                 - exact["pac_area"].astype(np.float64))
+    # Cut before block 1 (after block 0 reached the ring), then resumed.
+    with tempfile.TemporaryDirectory() as tmp:
+        ring = StreamCheckpointer(tmp)
+        engine = PairConsensusEngine(KMeans(n_init=3), config, device="cuda")
+        faults.configure("block_start=1")
+        raised = False
+        try:
+            engine.run(x, 23, h, checkpointer=ring, return_state=True)
+        except InjectedFault:
+            raised = True
+        finally:
+            faults.clear()
+        resumed = engine.run(x, 23, h, checkpointer=ring, return_state=True)
+        ring.close()
+    res_same = bool(
+        raised and resumed["streaming"]["resumed_from_block"] == 1
+        and all(np.array_equal(resumed["pair_state"][k], ps[k])
+                for k in ("mij", "iij"))
+        and all(np.array_equal(resumed[k], runs["packed"][k])
+                for k in ("hist", "cdf", "pac_area")))
+    emit({"phase": "estimate_check", "nvidia_smi": smi_line(),
+          "config": "headline data N=5000, H=100, K=2..20, blocks of 50, "
+                    "KMeans(n_init=3), n_pairs 2^17, seed 23",
+          "pair_counts_equal_planes": same, "pac_abs_err": err.tolist(),
+          "max_pac_abs_err": float(err.max()), "pac_error_bound": bound,
+          "resume_bit_identical": res_same,
+          "stream_seconds": stream_s, "estimate_seconds": seconds,
+          "pairs_with_iij": int((iij_ref > 0).sum())})
+    check(all(same.values()), f"estimate_check: pair counts != the stream's "
+                              f"planes at the pairs: {same}")
+    check(bool((err <= bound).all()),
+          f"estimate_check: |PAC_est - PAC_exact| {err.max()} > {bound}")
+    check(res_same, "estimate_check: the resumed run != the uninterrupted")
+
+
+def phase_refine(torch, results):
+    """``exact_curves_for_k`` at the headline configuration (N = 5000,
+    H = 500, K = 8): PAC equal to ``PINNED_PAC`` at K = 8, the CDF equal
+    to the dense headline's (when that phase ran), and the tiled kernel
+    route equal to its plain route on the card."""
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.estimator.tiled import (
+        collect_resample_labels,
+        exact_curves_for_k,
+        tiled_exact_curves,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        popcount_accumulate,
+    )
+    from consensus_clustering_tpu_torch.ops.hist import (
+        consensus_hist_from_counts_plain,
+    )
+
+    x = headline_data()
+    ks = list(HEADLINE["K_range"])
+    config = SweepConfig(n_samples=5000, n_features=50, k_values=tuple(ks),
+                         n_iterations=500, store_matrices=False,
+                         chunk_size=4, cluster_batch=16, stream_h_block=100)
+    exact = exact_curves_for_k(KMeans(n_init=3), config, x, 23, 8,
+                               device="cuda")
+    pinned = PINNED_PAC[ks.index(8)]
+    idx, lab = collect_resample_labels(KMeans(n_init=3), config, x, 23, 8,
+                                       device="cuda")
+    lo, hi = config.pac_idx
+    t0 = time.perf_counter()
+    plain = tiled_exact_curves(idx, lab, 5000, 20, lo, hi,
+                               popcount_fn=popcount_accumulate,
+                               hist_fn=consensus_hist_from_counts_plain)
+    plain_s = time.perf_counter() - t0
+    same_plain = all(np.array_equal(exact[k], plain[k])
+                     for k in ("hist", "cdf", "pac_area"))
+    dense = results.get("headline_fit")
+    same_headline = ("not run: the headline phase did not run in this call"
+                     if dense is None else bool(np.array_equal(
+                         exact["cdf"].astype(np.float64),
+                         dense.cdf_at_K_data[8]["cdf"])))
+    emit({"phase": "refine", "nvidia_smi": smi_line(),
+          "pac_area": float(exact["pac_area"]), "pinned_pac": pinned,
+          "cdf_equal_headline": same_headline,
+          "equal_plain_route": same_plain, "timing": exact["timing"],
+          "plain_route_seconds": plain_s})
+    check(float(exact["pac_area"]) == pinned,
+          f"refine: PAC {exact['pac_area']} != pinned {pinned}")
+    check(same_headline is not False, "refine: CDF != the headline's at K=8")
+    check(same_plain, "refine: kernel route != plain route on the card")
+    check(exact["timing"]["kernel_launches"]["popcount"] > 0
+          and exact["timing"]["kernel_launches"]["hist"] > 0,
+          f"refine: launches {exact['timing']['kernel_launches']}")
+    _record_launches(results, "refine", exact["timing"]["kernel_launches"])
+
+
+def phase_append(torch, results):
+    """Incremental append at the headline's width: a parent of the
+    headline blobs' first 4,000 rows (H_old = 400, blocks of 100, packed,
+    fused) bootstrapped into a plane store, then all 5,000 rows appended
+    with h_new = 100 (dN/N = 0.2), the launch counts set to 0 just
+    before the append."""
+    from consensus_clustering_tpu_torch.append import (
+        PlaneStore,
+        bootstrap_generation,
+        run_append,
+    )
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from consensus_clustering_tpu_torch.ops.bitpack import (
+        popcount_accumulate,
+    )
+    from consensus_clustering_tpu_torch.ops.hist import (
+        consensus_hist_from_counts_plain,
+    )
+    from consensus_clustering_tpu_torch.ops.tiles import (
+        plane_words,
+        planes_curves,
+    )
+
+    x = headline_data()
+    ks = tuple(HEADLINE["K_range"])
+    config = SweepConfig(n_samples=4000, n_features=50, k_values=ks,
+                         n_iterations=400, store_matrices=False,
+                         chunk_size=4, cluster_batch=16, stream_h_block=100,
+                         accum_repr="packed", fuse_block="auto")
+    meta = {"name": "KMeans", "options": {"n_init": 3}}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = PlaneStore(tmp)
+        t0 = time.perf_counter()
+        bootstrap_generation(x[:4000], config=config,
+                             clusterer=KMeans(n_init=3), seed=23,
+                             store=store, clusterer_meta=meta, device="cuda")
+        parent_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_append(store, x, h_new=100, clusterer=KMeans(n_init=3),
+                         stream_h_block=100, k_values=ks,
+                         clusterer_name="KMeans",
+                         clusterer_options={"n_init": 3}, device="cuda")
+        append_s = time.perf_counter() - t0
+        launches = launch_counts()
+        manifest, arrays = store.load_latest()
+    planes = plane_words(arrays["planes"], "cuda")
+    cop = plane_words(arrays["coplanes"], "cuda")
+    lo, hi = config.pac_idx
+    card = planes_curves(planes, cop, 20, lo, hi)
+    plain = planes_curves(planes, cop, 20, lo, hi,
+                          popcount_fn=popcount_accumulate,
+                          hist_fn=consensus_hist_from_counts_plain)
+    same_plain = all(np.array_equal(card[k], plain[k])
+                     for k in ("hist", "cdf", "pac_area"))
+    same_out = bool(np.array_equal(np.asarray(out["cdf"]), card["cdf"]))
+    ap = out["append"]
+    stream_wall = results.get("stream_wall")
+    emit({"phase": "append", "nvidia_smi": smi_line(),
+          "config": "headline blobs, parent N=4000 H=400, append N=5000 "
+                    "h_new=100, K=2..20, blocks of 100, packed, fused",
+          "parent_seconds": parent_s, "append_seconds": append_s,
+          "append_run_seconds": ap["run_seconds"],
+          "from_scratch_stream_seconds": stream_wall
+          if stream_wall else "not run: the stream phase did not run",
+          "append": {k: v for k, v in ap.items() if k != "staleness"},
+          "staleness": ap["staleness"], "pac": out["pac_area"],
+          "merged_equal_plain_route": same_plain,
+          "result_equal_reloaded_store": same_out,
+          "store_generation": manifest["generation"],
+          "store_backend": manifest.get("backend"),
+          "launches": launches})
+    check(ap["iij_bit_identical"] and ap["generation"] == 1
+          and ap["h_total"] == 500, f"append: accounting {ap}")
+    check(same_plain, "append: merged curves on the card != plain route")
+    check(same_out, "append: result != the reloaded generation's curves")
+    check(manifest["generation"] == 1 and manifest["h_done"] == 500,
+          f"append: store reloaded generation {manifest['generation']}")
+    check(not ap["staleness"]["refresh_recommended"],
+          f"append: staleness {ap['staleness']}")
+    check(all(launches[k] > 0 for k in ("lloyd", "assign", "fused_block",
+                                        "popcount", "hist")),
+          f"append: a kernel of the path never launched: {launches}")
+    _record_launches(results, "append", launches)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES))
@@ -1802,6 +2298,14 @@ def main(argv=None):
         phase_corr(torch)
     if "clusterers" in phases:
         phase_clusterers(torch, results)
+    if "estimate" in phases:
+        phase_estimate(torch, results)
+    if "estimate_check" in phases:
+        phase_estimate_check(torch, results)
+    if "refine" in phases:
+        phase_refine(torch, results)
+    if "append" in phases:
+        phase_append(torch, results)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)

@@ -34,9 +34,16 @@ missing Ks (:class:`.utils.checkpoint.SweepCheckpoint`); a streamed fit
 also keeps a ring of block checkpoints under ``<checkpoint_dir>/stream``
 and resumes mid-stream, bit for bit.
 
+``mode="estimate"`` runs the sampled-pair estimator
+(:mod:`.estimator`: O(M) state, curves with a disclosed error bound in
+``metrics_["estimator"]``) and ``exact_best_k`` refines the chosen K
+exactly (:func:`.estimator.tiled.exact_curves_for_k`); ``mode="auto"``
+takes the estimator when the exact job's footprint exceeds the memory
+budget (:mod:`.serve.preflight`: ``CCTPU_MEMORY_BUDGET``, else the
+device's memory).
+
 Features of the reference package that this package does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them:
-``mode`` other than ``exact``, ``n_pairs`` and ``exact_best_k`` (A9),
 ``autotune`` and ``calibration_dir`` (A12), ``mesh`` and ``k_interleave``
 (A13), and plotting (A15).  Unlike the reference, ``plot_cdf`` defaults to
 False.
@@ -53,7 +60,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from consensus_clustering_tpu_torch.config import (
+    MODES,
     SweepConfig,
+    autotune_stream_block,
     not_ported,
     validate_accum_repr,
     validate_fuse_block,
@@ -79,7 +88,6 @@ logger = logging.getLogger(__name__)
 
 _DEFAULT_CLUSTERER_OPTIONS = {"n_init": 3}
 _DELTA_K_THRESHOLD = 0.05
-_MODES = ("exact", "estimate", "auto")
 
 
 def _apply_options(clusterer: Any, options: Dict[str, Any]) -> Any:
@@ -174,10 +182,23 @@ class ConsensusClustering:
         a re-fit with the same arguments runs only what is missing.
     progress_callback : keyword-only, optional
         ``cb(k, pac)`` once per computed K, in K order (device paths).
-    mesh, k_interleave, autotune, calibration_dir, mode, n_pairs,
-    exact_best_k : keyword-only
-        Accepted at their defaults; other values raise the reference's
-        ``ValueError`` or ``NotImplementedError`` naming the ROADMAP item.
+    mode : {'exact', 'estimate', 'auto'}, keyword-only
+        ``estimate`` runs the sampled-pair estimator (needs
+        ``store_matrices`` not True, no consensus labels, a device
+        clusterer); ``auto`` picks it when the exact job's footprint
+        (:func:`.serve.preflight.estimate_job_bytes`) exceeds the budget
+        (:func:`.serve.preflight.resolve_memory_budget`), and ``exact``
+        where the estimator cannot run.  ``metrics_['mode']`` and
+        ``metrics_['estimator']`` (the disclosed bound) report it.
+    n_pairs : int, keyword-only, optional
+        Pairs the estimator samples (default 2^17, capped at the
+        population); only with ``mode`` 'estimate' or 'auto'.
+    exact_best_k : bool, keyword-only
+        With the estimator: recompute the chosen K's curves exactly over
+        the resamples the estimate ran (``metrics_['exact_best_k']``).
+    mesh, k_interleave, autotune, calibration_dir : keyword-only
+        Accepted at their defaults; other values raise
+        ``NotImplementedError`` naming the ROADMAP item.
     """
 
     def __init__(
@@ -242,21 +263,18 @@ class ConsensusClustering:
                 "not a library mode — use 'estimate' here and refine "
                 "the chosen K with estimator.tiled.exact_curves_for_k"
             )
-        if mode not in _MODES:
-            raise ValueError(f"mode must be one of {list(_MODES)}, got {mode!r}")
-        if mode != "exact":
-            raise not_ported(f"mode={mode!r} (the pair estimator)", "A9")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {list(MODES)}, got {mode!r}")
         if n_pairs is not None:
             if (isinstance(n_pairs, bool) or not isinstance(n_pairs, int)
                     or n_pairs < 1):
                 raise ValueError(
                     f"n_pairs must be an int >= 1 or None, got {n_pairs!r}"
                 )
-            raise ValueError(
-                "n_pairs only applies with mode='estimate' or 'auto'"
-            )
-        if exact_best_k:
-            raise not_ported("exact_best_k (the pair estimator)", "A9")
+            if mode == "exact":
+                raise ValueError(
+                    "n_pairs only applies with mode='estimate' or 'auto'"
+                )
         if autotune:
             raise not_ported("autotune", "A12")
         if calibration_dir is not None:
@@ -328,6 +346,9 @@ class ConsensusClustering:
         self.adaptive_patience = adaptive_patience
         self.adaptive_min_h = adaptive_min_h
         self.integrity_check_every = integrity_check_every
+        self.mode = mode
+        self.n_pairs = n_pairs
+        self.exact_best_k = bool(exact_best_k)
 
     # -- clusterer resolution -------------------------------------------
 
@@ -418,6 +439,9 @@ class ConsensusClustering:
                 "N); pass store_matrices=True explicitly"
             )
         device = resolve_device(self.device)
+        mode, sizing = self._resolve_mode(n, d, device)
+        if mode == "estimate":
+            return self._fit_estimate(X, n, d, device, sizing)
         config = SweepConfig(
             n_samples=n,
             n_features=d,
@@ -502,6 +526,197 @@ class ConsensusClustering:
             "k_values": [int(k) for k in config.k_values],
             "n_iterations": config.n_iterations,
             "resumed_ks": sorted(int(k) for k in loaded),
+            "pac_area": {int(k): float(v["pac_area"])
+                         for k, v in self.cdf_at_K_data.items()},
+            "best_k": self.best_k_,
+        })
+        return self
+
+    # -- the estimator ---------------------------------------------------
+
+    def _estimate_infeasible_reason(self) -> Optional[str]:
+        """Why the estimator cannot run this configuration, or None;
+        ``mode='auto'`` then attempts exact instead of resolving into a
+        certain ValueError."""
+        if self.store_matrices is True:
+            return "store_matrices=True (the estimator never builds them)"
+        if self.compute_consensus_labels:
+            return "compute_consensus_labels needs the matrices"
+        c = self.clusterer
+        if isinstance(c, HostClusterer) or (
+            c is not None and hasattr(c, "fit_predict")
+            and hasattr(c, "get_params")
+        ):
+            return "host-backend clusterer (no device block to stream)"
+        return None
+
+    def _resolve_mode(self, n: int, d: int, device):
+        """``(mode, sizing)``: ``mode='auto'`` against the memory budget,
+        exact when the dense footprint fits it (or no budget resolves, or
+        the estimator cannot run here), the estimator otherwise; logged
+        either way.  ``sizing`` holds the footprint and the budget it was
+        held to (None where no comparison ran)."""
+        if self.mode != "auto":
+            return self.mode, None
+        infeasible = self._estimate_infeasible_reason()
+        if infeasible is not None:
+            logger.info("mode=auto: estimate mode unavailable here (%s) — "
+                        "attempting exact", infeasible)
+            return "exact", None
+        from consensus_clustering_tpu_torch.serve.preflight import (
+            estimate_job_bytes,
+            resolve_memory_budget,
+        )
+
+        budget = resolve_memory_budget(device=device)
+        if budget is None:
+            logger.info("mode=auto: no memory budget resolvable — exact")
+            return "exact", None
+        estimate = estimate_job_bytes(
+            n, d, tuple(self.K_range), dtype=self.compute_dtype,
+            h_block=self.stream_h_block
+            or autotune_stream_block(self.n_iterations),
+            subsampling=self.subsampling,
+            checkpoints=self.checkpoint_dir is not None,
+        )
+        sizing = {"dense_total_bytes": estimate["total_bytes"],
+                  "budget_bytes": int(budget)}
+        if estimate["total_bytes"] <= budget:
+            logger.info("mode=auto: dense footprint %d bytes fits budget %d "
+                        "— exact", estimate["total_bytes"], budget)
+            return "exact", sizing
+        logger.info(
+            "mode=auto: dense footprint %d bytes exceeds budget %d — "
+            "running the sampled-pair estimator (disclosed error bound in "
+            "metrics_['estimator'])", estimate["total_bytes"], budget,
+        )
+        return "estimate", sizing
+
+    def _fit_estimate(self, X: np.ndarray, n: int, d: int, device,
+                      sizing=None):
+        """The estimate-mode fit: the sampled-pair engine instead of a
+        dense sweep, curves with a disclosed band in
+        ``metrics_['estimator']`` (and ``mode='auto'``'s ``sizing`` in
+        ``metrics_['auto']``), and with ``exact_best_k`` the chosen K
+        refined exactly at the resamples the estimate ran."""
+        from consensus_clustering_tpu_torch.estimator.engine import (
+            run_pair_estimate,
+        )
+
+        if self.store_matrices is True:
+            raise ValueError(
+                "store_matrices=True is incompatible with mode='estimate': "
+                "the estimator never materialises the N x N matrices — "
+                "that is the point; pass store_matrices='auto' or False"
+            )
+        if self.compute_consensus_labels:
+            raise ValueError(
+                "compute_consensus_labels=True needs the consensus "
+                "matrices, which mode='estimate' never materialises"
+            )
+        clusterer, is_host = self._resolve_clusterer()
+        if is_host:
+            raise ValueError(
+                "mode='estimate' is a device-path engine: a host-backend "
+                "(sklearn) clusterer has no device block to stream — use a "
+                "device clusterer or mode='exact'"
+            )
+        if self.k_batch_size is not None:
+            logger.info("k_batch_size is ignored with mode='estimate': the "
+                        "pair engine runs every K in one O(M)-state pass")
+        config = SweepConfig(
+            n_samples=n,
+            n_features=d,
+            k_values=tuple(self.K_range),
+            n_iterations=self.n_iterations,
+            subsampling=self.subsampling,
+            bins=self.bins,
+            pac_interval=self.PAC_interval,
+            parity_zeros=self.parity_zeros,
+            store_matrices=False,
+            chunk_size=self.chunk_size,
+            cluster_batch=self.cluster_batch,
+            split_init=bool(self.split_init),
+            reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
+            stream_h_block=self.stream_h_block
+            or autotune_stream_block(self.n_iterations),
+            adaptive_tol=self.adaptive_tol,
+            adaptive_patience=self.adaptive_patience,
+            adaptive_min_h=self.adaptive_min_h,
+            accum_repr=self.accum_repr,
+            use_packed_kernel=self.use_packed_kernel,
+            fuse_block=self.fuse_block,
+            integrity_check_every=self.integrity_check_every,
+            dtype=self.compute_dtype,
+        )
+        metrics_logger = MetricsLogger(self.metrics_path)
+
+        def block_cb(block, h_done, pac):
+            metrics_logger.emit("h_block_complete", block=block,
+                                h_done=h_done, pac_area=pac)
+
+        ring = None
+        if self.checkpoint_dir is not None:
+            # The block ring only, under the estimator's own fingerprint:
+            # the per-K files hold EXACT results and are never read or
+            # written here.
+            from consensus_clustering_tpu_torch.resilience.blocks import (
+                StreamCheckpointer,
+            )
+
+            ring = StreamCheckpointer(
+                os.path.join(self.checkpoint_dir, "stream"))
+        try:
+            with self._profiled(device):
+                out = run_pair_estimate(
+                    clusterer, config, X, self.random_state,
+                    n_pairs=self.n_pairs, device=device,
+                    block_callback=block_cb, checkpointer=ring,
+                )
+        finally:
+            if ring is not None:
+                ring.close()
+        ks = list(config.k_values)
+        if self.progress_callback is not None:
+            for i, k in enumerate(ks):
+                self.progress_callback(int(k), float(out["pac_area"][i]))
+        self._build_results(self._entries(out, config), config, {},
+                            [out["timing"]])
+        self.metrics_["mode"] = "estimate"
+        self.metrics_["streaming"] = out["streaming"]
+        self.metrics_["estimator"] = out["estimator"]
+        if sizing is not None:
+            self.metrics_["auto"] = sizing
+        if self.exact_best_k:
+            from consensus_clustering_tpu_torch.estimator.tiled import (
+                exact_curves_for_k,
+            )
+
+            # Refine at the resamples the estimate ran (h_effective): under
+            # early stop a full-H curve would be another statistic, whose
+            # distance from the estimate the disclosed band does not cover.
+            refine_config = dataclasses.replace(
+                config, n_iterations=int(out["streaming"]["h_effective"]))
+            exact = exact_curves_for_k(clusterer, refine_config, X,
+                                       self.random_state, self.best_k_,
+                                       device=device)
+            entry = self.cdf_at_K_data[self.best_k_]
+            pac_estimate = entry["pac_area"]
+            entry["hist"] = np.asarray(exact["hist"], np.float64)
+            entry["cdf"] = np.asarray(exact["cdf"], np.float64)
+            entry["pac_area"] = float(exact["pac_area"])
+            self.metrics_["exact_best_k"] = {
+                "k": int(self.best_k_),
+                "pac_area_exact": float(exact["pac_area"]),
+                "pac_area_estimate": float(pac_estimate),
+                "timing": exact["timing"],
+            }
+        metrics_logger.emit("sweep_complete", **{
+            **self.metrics_,
+            "n_samples": n,
+            "k_values": [int(k) for k in ks],
+            "n_iterations": config.n_iterations,
+            "resumed_ks": [],
             "pac_area": {int(k): float(v["pac_area"])
                          for k, v in self.cdf_at_K_data.items()},
             "best_k": self.best_k_,

@@ -1,8 +1,8 @@
 """Static sweep configuration for the single-device sweeps.
 
-The subset of the reference package's ``SweepConfig`` that the monolithic
-and streaming ``ConsensusClustering.fit`` paths read, with the reference's
-validation.  Mesh and estimator fields belong to engines this package does
+The subset of the reference package's ``SweepConfig`` that the monolithic,
+streaming and estimator ``ConsensusClustering.fit`` paths read, with the
+reference's validation.  Mesh fields belong to an engine this package does
 not have yet.
 """
 
@@ -43,6 +43,20 @@ def validate_fuse_block(fuse_block: str) -> str:
             f"{fuse_block!r}"
         )
     return fuse_block
+
+
+#: ``ConsensusClustering`` modes: the exact sweep, the sampled-pair
+#: estimator (:mod:`.estimator`), or ``auto`` (the estimator when the
+#: exact job's footprint exceeds the memory budget).
+MODES = ("exact", "estimate", "auto")
+
+
+def autotune_stream_block(n_iterations: int) -> int:
+    """Default resamples per block where a path streams and the caller
+    set none: ``H // 8`` clamped to [16, 128] (the reference's rule)."""
+    if n_iterations < 1:
+        raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
+    return max(16, min(128, int(n_iterations) // 8))
 
 
 def not_ported(feature: str, item: str) -> NotImplementedError:

@@ -3,11 +3,13 @@
 The inputs are plain Python and numpy values, never JAX objects: pass
 ``dataclasses.asdict`` of a reference ``SweepConfig`` or ``KMeans``, and
 ``np.asarray(jax.random.key_data(key))`` for a key.  Initial centroids pass
-as numpy arrays directly.
+as numpy arrays directly; an estimator's pair counts and a plane store's
+generation pass as numpy arrays and directories.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -116,3 +118,56 @@ def state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor
         else:
             out[name] = torch.as_tensor(data.astype(np.int32), device=device)
     return out
+
+
+def pair_state_from_jax(arrays: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A reference estimator's pair counts (a checkpoint frame's
+    ``state_mij``/``state_iij``, or ``run(return_state=True)``'s
+    ``pair_state`` ``mij``/``iij``) as the port's engine state: (nK, M) and
+    (M,) int32 tensors."""
+    def pick(name):
+        value = arrays.get(f"state_{name}", arrays.get(name))
+        if value is None:
+            raise ValueError(f"no {name!r} or 'state_{name}' counts given")
+        return torch.as_tensor(np.asarray(value).astype(np.int32),
+                               device=device)
+
+    state = {"mij": pick("mij"), "iij": pick("iij")}
+    if state["mij"].dim() != 2 or state["iij"].shape != state["mij"].shape[1:]:
+        raise ValueError(
+            f"expected (nK, M) mij and (M,) iij, got "
+            f"{tuple(state['mij'].shape)} and {tuple(state['iij'].shape)}"
+        )
+    return state
+
+
+def plane_store_from_jax(source: str, destination: str, device=None):
+    """Re-write the reference package's verified plane store at
+    ``source`` as a port store at ``destination``, under the port's
+    backend tag for ``device`` (default ``cuda``): the one route by which
+    reference planes enter a port store (a port append refuses another
+    backend's manifest).
+
+    The newest generation that verifies is carried over with its number,
+    lineage, seed and data fingerprint; its config becomes the port's
+    (:func:`config_from_jax`).  Returns the written manifest.
+    """
+    from consensus_clustering_tpu_torch.append.store import PlaneStore
+    from consensus_clustering_tpu_torch.device import resolve_device
+    from consensus_clustering_tpu_torch.utils.checkpoint import backend_tag
+
+    manifest, arrays = PlaneStore(source).load_latest()
+    if manifest.get("backend") is not None:
+        raise ValueError(
+            f"{source} was written by backend {manifest['backend']!r}, not "
+            "by the reference package"
+        )
+    record = {key: value for key, value in manifest.items()
+              if key not in ("schema", "generation", "shapes", "digests",
+                             "written_at")}
+    record["config"] = dataclasses.asdict(config_from_jax(manifest["config"]))
+    record["backend"] = backend_tag(resolve_device(device))
+    generation = int(manifest["generation"])
+    store = PlaneStore(destination)
+    store.write_generation(generation, record, arrays)
+    return store.load_latest()[0]

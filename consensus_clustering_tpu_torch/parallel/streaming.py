@@ -10,7 +10,8 @@ device.  The sweep runs as blocks of ``stream_h_block`` resamples:
   words holding uint32 bit patterns (:mod:`..ops.bitpack`), 1/32 the bytes;
   int32 Mij/Iij exist only as row tiles of ``tile_r`` rows, popcounted
   (:mod:`..ops.popcount`), histogrammed through their Cij
-  (:func:`..ops.hist.consensus_hist_from_counts`) and dropped.  The
+  (:func:`..ops.hist.consensus_hist_from_counts`) and dropped
+  (:func:`..ops.tiles.packed_hist_counts`).  The
   state is updated in place (block b owns words ``b * wb .. b * wb + wb``).
 - **H is a runtime argument.**  One engine serves any ``n_iterations``
   (packed: up to the capacity its build config's H sets).
@@ -68,6 +69,7 @@ from consensus_clustering_tpu_torch.ops.resample import (
     cosample_counts,
     resample_indices,
 )
+from consensus_clustering_tpu_torch.ops.tiles import packed_hist_counts
 from consensus_clustering_tpu_torch.parallel.sweep import (
     build_kernels,
     curves_from_counts,
@@ -299,16 +301,8 @@ class StreamingSweep:
         # counts that ever exist in the packed step.
         words = state["planes"].reshape(self._n_ks, k_max * self._w_cap,
                                         self._n_pad2)
-        counts = torch.zeros((self._n_ks, config.bins), dtype=torch.int64,
-                             device=self.device)
-        for t0 in range(0, self._n_pad2, self._tile_r):
-            tile = slice(t0, t0 + self._tile_r)
-            iij_t = packed_coassoc_counts(coplanes[:, tile], coplanes)
-            for i in range(self._n_ks):
-                mij_t = packed_coassoc_counts(words[i, :, tile], words[i])
-                consensus_hist_from_counts(mij_t, iij_t, n, t0, config.bins,
-                                           counts[i])
-        return list(counts)
+        return list(packed_hist_counts(words, coplanes, config.bins,
+                                       self._tile_r, n_valid=n))
 
     def columns(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The fused step's (n_pad2, d) float32 element rows: element j at

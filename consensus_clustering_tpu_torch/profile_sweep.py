@@ -2,6 +2,8 @@
 
     python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8] [--stream H_BLOCK]
     python -m consensus_clustering_tpu_torch.profile_sweep --ab-ring H_BLOCK [--rounds N]
+    python -m consensus_clustering_tpu_torch.profile_sweep --estimate [--h 100] [--profile-k 8]
+    python -m consensus_clustering_tpu_torch.profile_sweep --append
 
 Runs the headline configuration of ``chip_smoke.py`` (make_blobs N=5000
 d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
@@ -34,8 +36,20 @@ written every block and the integrity sentinel every block) and with the
 ring's writes held until after the run (the driver's side alone), with
 the ring's, the host copy's and the sentinel's seconds.  Both print each
 run's device busy share as NVML samples it (``nvidia-smi``
-``utilization.gpu``); ``--rounds N`` repeats the turns N times.  Needs a
-CUDA device.
+``utilization.gpu``); ``--rounds N`` repeats the turns N times.
+
+``--estimate`` does parts 1-3 for the sampled-pair estimator at its own
+scale (``chip_smoke.py``'s ``estimate``: the same generator at N=100,000,
+H=``--h`` (default 100), blocks of 100, packed pairs, 2^17 pairs, then
+the exact refinement of K=8): stages plan, the pairs' Iij and Mij
+increments, clustering, the pair histogram, and the refinement's label
+collection and tiles (B3, B1); part 1 also samples NVML's busy share.
+``--append`` times the append of ``chip_smoke.py`` (a parent of the
+headline's first 4,000 rows, H=400, then all 5,000 rows with 100 new
+resamples), plain with NVML's busy share and then by stage: the new
+lanes' stream (and its stages), store load and verify, staleness, merge,
+Iij accounting, the merged curves and the store write.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.data import make_blobs
 from consensus_clustering_tpu_torch.models import kmeans
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.ops import tiles
 from consensus_clustering_tpu_torch.ops.fused_block import lanes_per_block
 from consensus_clustering_tpu_torch.parallel import streaming, sweep
 from consensus_clustering_tpu_torch.parallel.streaming import (
@@ -92,11 +107,17 @@ _STAGES = {
         *_CLUSTER_STAGES,
         (streaming, "fused_assign_pack", "pack (B4)"),
         (streaming, "pack_label_planes", "pack (unfused)"),
-        (streaming, "packed_coassoc_counts", "popcount (B3)"),
-        (streaming, "consensus_hist_from_counts", "cij+hist (B1)"),
+        (tiles, "packed_coassoc_counts", "popcount (B3)"),
+        (tiles, "consensus_hist_from_counts", "cij+hist (B1)"),
         (sweep, "cdf_pac_from_counts", "curves"),
     ),
 }
+
+#: Rows of the estimator's data (``chip_smoke.py``'s ``estimate``).
+ESTIMATE_N = 100_000
+#: The append of ``chip_smoke.py``: parent rows and resamples, then all
+#: rows and the new resamples, in blocks of APPEND_BLOCK.
+APPEND = dict(n_old=4000, h_old=400, n_new=5000, h_new=100, block=100)
 
 _KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
                     "fused_planes_kernel", "fused_merge_kernel",
@@ -287,6 +308,170 @@ def _ab(km, config, x, h_block, ring, rounds=1):
     return 0
 
 
+def _estimate_run(km, config, x, seed):
+    """The estimator over ``config`` and the exact refinement of K=8 (the
+    blobs' count) at the resamples it ran: ``timing.run_seconds`` sums
+    both."""
+    from consensus_clustering_tpu_torch.estimator.engine import (
+        run_pair_estimate,
+    )
+    from consensus_clustering_tpu_torch.estimator.tiled import (
+        exact_curves_for_k,
+    )
+
+    out = run_pair_estimate(km, config, x, seed)
+    t0 = time.perf_counter()
+    refined = dataclasses.replace(
+        config, n_iterations=out["streaming"]["h_effective"])
+    if 8 in config.k_values:
+        exact_curves_for_k(km, refined, x, seed, 8)
+    torch.cuda.synchronize()
+    out["timing"]["run_seconds"] += time.perf_counter() - t0
+    return out
+
+
+def _estimate(km, args, smi):
+    """``--estimate``: parts 1-3 for the estimator (module docstring)."""
+    from consensus_clustering_tpu_torch.estimator import engine, tiled
+
+    ks = tuple(int(k) for k in args.ks.split(","))
+    n = ESTIMATE_N
+    x, _ = make_blobs(n_samples=n, n_features=50, centers=8,
+                      cluster_std=3.0, random_state=0)
+    x = x.astype(np.float32)
+    config = SweepConfig(
+        n_samples=n, n_features=50, k_values=ks, n_iterations=args.h,
+        store_matrices=False, chunk_size=4, cluster_batch=16,
+        stream_h_block=100, accum_repr="packed")
+    stages = (
+        (engine, "resample_indices", "plan"),
+        (engine.PairConsensusEngine, "_iij_increment", "iij at the pairs"),
+        (engine, "fit_resample_lanes", "cluster"),
+        *_CLUSTER_STAGES,
+        (engine.PairConsensusEngine, "_mij_increment", "mij at the pairs"),
+        (engine, "masked_histogram_counts", "pair histogram"),
+        (tiled, "collect_resample_labels", "refine/collect labels"),
+        (tiled, "packed_hist_counts", "refine/tiles (B3, B1)"),
+    )
+    _estimate_run(km, dataclasses.replace(config, k_values=(2, 8),
+                                          n_iterations=16), x, 23)  # warm
+    out, busy = _sampled(lambda: _estimate_run(km, config, x, 23))
+    plain = out["timing"]
+    timed_wall, stage_s, lloyd_lanes = _timed_stages(km, config, x,
+                                                     _estimate_run, stages)
+    print(json.dumps({
+        "profile": "estimate stages (N=100,000, packed pairs, refine K=8)",
+        "k_values": list(ks), "h": args.h, "n_pairs": 2**17,
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "run_seconds": plain["run_seconds"], "nvml_busy_share": busy,
+        "peak_device_bytes": plain["device_memory"].get("peak_bytes_in_use"),
+        "launches": plain["kernel_launches"],
+        "timed_run_seconds": timed_wall, "stage_seconds": stage_s,
+        "lloyd_lanes": lloyd_lanes,
+    }, default=float), flush=True)
+    _profile_one_k(km, dataclasses.replace(config, k_values=(args.profile_k,)),
+                   x, _estimate_run, "estimate", smi, args)
+    return 0
+
+
+def _append(km, args, smi):
+    """``--append``: the append of ``chip_smoke.py``, plain then by stage
+    (module docstring)."""
+    import shutil
+
+    from consensus_clustering_tpu_torch.append import engine as app
+    from consensus_clustering_tpu_torch.append.store import PlaneStore
+
+    a = APPEND
+    x, _ = make_blobs(n_samples=a["n_new"], n_features=50, centers=8,
+                      cluster_std=3.0, random_state=0)
+    x = x.astype(np.float32)
+    config = SweepConfig(
+        n_samples=a["n_old"], n_features=50,
+        k_values=tuple(int(k) for k in args.ks.split(",")),
+        n_iterations=a["h_old"], store_matrices=False, chunk_size=4,
+        cluster_batch=16, stream_h_block=a["block"], accum_repr="packed",
+        fuse_block="auto")
+    with tempfile.TemporaryDirectory() as tmp:
+        parent = f"{tmp}/parent"
+        app.bootstrap_generation(x[:a["n_old"]], config=config, clusterer=km,
+                                 seed=23, store=PlaneStore(parent))
+
+        def run(km_, _config, _x, _seed):
+            target = tempfile.mkdtemp(dir=tmp)
+            shutil.rmtree(target)
+            shutil.copytree(parent, target)
+            out = app.run_append(PlaneStore(target), x, h_new=a["h_new"],
+                                 clusterer=km_, stream_h_block=a["block"])
+            # The whole append is the timed run; the new lanes' stream is a
+            # part of it.
+            out["timing"] = dict(
+                out["timing"], stream_run_seconds=out["timing"]["run_seconds"],
+                run_seconds=out["append"]["run_seconds"])
+            return out
+
+        run(km, None, None, None)  # warm
+        out, busy = _sampled(lambda: run(km, None, None, None))
+        stages = (
+            (PlaneStore, "load_latest", "store load + verify"),
+            (app, "_stream", "new lanes (packed stream)"),
+            *_STAGES["stream"],
+            (app, "staleness_report", "staleness (B3, B1)"),
+            (app, "merge_generations", "merge (host numpy)"),
+            (app, "iij_accounting_holds", "Iij accounting (B3)"),
+            (app, "curves_for_planes", "merged curves (B3, B1)"),
+            (PlaneStore, "write_generation", "store write"),
+        )
+        timed_wall, stage_s, _ = _timed_stages(km, None, None, run, stages)
+    print(json.dumps({
+        "profile": "append stages (packed, fused)", "append": a,
+        "k_values": list(config.k_values),
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "run_seconds": out["append"]["run_seconds"],
+        "stream_run_seconds": out["timing"]["stream_run_seconds"],
+        "nvml_busy_share": busy, "launches": out["timing"]["kernel_launches"],
+        "timed_run_seconds": timed_wall, "stage_seconds": stage_s,
+    }, default=float), flush=True)
+    return 0
+
+
+def _profile_one_k(km, one_k, x, run, engine, smi, args):
+    """Part 3 (module docstring): one K plain, then under torch.profiler:
+    device time by kernel class and the device idle share."""
+    one_k_plain = run(km, one_k, x, 23)["timing"]["run_seconds"]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run(km, one_k, x, 23)
+    kernels = [e for e in prof.key_averages() if _self_device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    by_class = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        entry = by_class[_kernel_class(e.key)]
+        entry[0] += e.count
+        entry[1] += _self_device_us(e) / 1e6
+    busy_s = sum(v[1] for v in by_class.values())
+    print(json.dumps({
+        "profile": f"one K under torch.profiler ({engine})", "h": args.h,
+        "stream_h_block": args.stream,
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "profile_k": args.profile_k,
+        "profile_k_run_seconds": one_k_plain,
+        "profile_k_device_busy_seconds": busy_s,
+        "profile_k_device_idle_share": 1.0 - busy_s / one_k_plain,
+        "device_seconds_by_kernel_class": {
+            k: {"launches": v[0], "seconds": v[1]}
+            for k, v in sorted(by_class.items(), key=lambda kv: -kv[1][1])
+        },
+        "top_kernels": [
+            {"name": e.key[:80], "calls": e.count,
+             "device_s": _self_device_us(e) / 1e6}
+            for e in sorted(kernels, key=lambda e: -_self_device_us(e))
+            [:8]
+        ],
+    }, default=float))
+
+
 def _smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -298,16 +483,27 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ks", default=",".join(map(str, range(2, 21))))
     parser.add_argument("--profile-k", type=int, default=8)
-    parser.add_argument("--h", type=int, default=500)
+    parser.add_argument("--h", type=int, default=None,
+                        help="resamples (default 500; --estimate: 100)")
     parser.add_argument("--stream", type=int, default=None, metavar="H_BLOCK")
     parser.add_argument("--ab", type=int, default=None, metavar="H_BLOCK")
     parser.add_argument("--ab-ring", type=int, default=None,
                         metavar="H_BLOCK")
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--estimate", action="store_true")
+    parser.add_argument("--append", action="store_true")
     args = parser.parse_args(argv)
+    if args.h is None:
+        args.h = 100 if args.estimate else 500
     if not torch.cuda.is_available():
         print("profile_sweep: no CUDA device is visible", file=sys.stderr)
         return 2
+    if args.estimate or args.append:
+        smi = _smi()
+        print(smi, flush=True)
+        if args.estimate:
+            return _estimate(KMeans(n_init=3), args, smi)
+        return _append(KMeans(n_init=3), args, smi)
     ks = tuple(int(k) for k in args.ks.split(","))
     x, _ = make_blobs(n_samples=5000, n_features=50, centers=8,
                       cluster_std=3.0, random_state=0)
@@ -347,39 +543,8 @@ def main(argv=None):
         "lloyd_lanes": lloyd_lanes,
     }, default=float), flush=True)
 
-    one_k = dataclasses.replace(config, k_values=(args.profile_k,))
-    one_k_plain = run(km, one_k, x, 23)["timing"]["run_seconds"]
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        run(km, one_k, x, 23)
-    kernels = [e for e in prof.key_averages() if _self_device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    by_class = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        entry = by_class[_kernel_class(e.key)]
-        entry[0] += e.count
-        entry[1] += _self_device_us(e) / 1e6
-    busy_s = sum(v[1] for v in by_class.values())
-    print(json.dumps({
-        "profile": f"one K under torch.profiler ({engine})", "h": args.h,
-        "stream_h_block": args.stream,
-        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "profile_k": args.profile_k,
-        "profile_k_run_seconds": one_k_plain,
-        "profile_k_device_busy_seconds": busy_s,
-        "profile_k_device_idle_share": 1.0 - busy_s / one_k_plain,
-        "device_seconds_by_kernel_class": {
-            k: {"launches": v[0], "seconds": v[1]}
-            for k, v in sorted(by_class.items(), key=lambda kv: -kv[1][1])
-        },
-        "top_kernels": [
-            {"name": e.key[:80], "calls": e.count,
-             "device_s": _self_device_us(e) / 1e6}
-            for e in sorted(kernels, key=lambda e: -_self_device_us(e))
-            [:8]
-        ],
-    }, default=float))
+    _profile_one_k(km, dataclasses.replace(config, k_values=(args.profile_k,)),
+                   x, run, engine, smi, args)
     return 0
 
 

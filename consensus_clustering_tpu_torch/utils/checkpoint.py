@@ -117,6 +117,38 @@ def stream_fingerprint(
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
+def estimator_stream_fingerprint(
+    config: SweepConfig,
+    seed: int,
+    data_sha: str,
+    *,
+    backend: str,
+    n_pairs: int,
+    n_iterations: Optional[int] = None,
+    adaptive_tol: Optional[float] = None,
+    adaptive_patience: Optional[int] = None,
+    adaptive_min_h: Optional[int] = None,
+) -> str:
+    """Identity of a sampled-pair estimator's block-resume state.
+
+    :func:`stream_fingerprint` (backend tag included) under its own scheme
+    tag, ``estimator-v1``, with ``n_pairs``: pair counts at another sample
+    size are another layout and another statistic, and the tag keeps
+    estimator and streamed-sweep frames from resuming each other in a
+    shared ring.  The pairs themselves are a pure function of the seed.
+    """
+    base = stream_fingerprint(
+        config, seed, data_sha, backend=backend,
+        n_iterations=n_iterations, adaptive_tol=adaptive_tol,
+        adaptive_patience=adaptive_patience, adaptive_min_h=adaptive_min_h,
+    )
+    blob = json.dumps(
+        {"scheme": "estimator-v1", "stream": base, "n_pairs": int(n_pairs)},
+        sort_keys=True,
+    ).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
 class SweepCheckpoint:
     """Directory of per-K npz checkpoints with a config fingerprint."""
 

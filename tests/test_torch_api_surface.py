@@ -77,8 +77,8 @@ def test_every_reference_keyword_is_a_port_keyword():
 @pytest.mark.parametrize("kwargs,item", [
     (dict(k_interleave=True), "A13"),
     (dict(calibration_dir="calibration"), "A12"),
-    (dict(exact_best_k=True), "A9"),
-    (dict(mode="estimate", n_pairs=64), "A9"),
+    (dict(autotune=True), "A12"),
+    (dict(mode="estimate", n_pairs=64, mesh=object()), "A13"),
 ])
 def test_unported_keywords_name_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -112,6 +112,8 @@ def test_ported_keywords_construct(tmp_path):
         split_init=None, n_jobs=2, memmap_folder=str(tmp_path))
     assert cc.progress is False and cc.k_batch_size == 2
     assert not os.path.exists(tmp_path / "p")  # construction writes nothing
+    est = ConsensusClustering(mode="estimate", n_pairs=64, exact_best_k=True)
+    assert (est.mode, est.n_pairs, est.exact_best_k) == ("estimate", 64, True)
 
 
 def test_default_n_init_is_dropped_only_where_there_is_none():

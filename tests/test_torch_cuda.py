@@ -512,3 +512,77 @@ def test_clusterers_group_invariantly_on_the_card(cuda):  # jaxlint: disable=JL0
         for k in (2, 4, 6):
             np.testing.assert_array_equal(fits[0].cdf_at_K_data[k]["mij"],
                                           fits[1].cdf_at_K_data[k]["mij"])
+
+
+@pytest.mark.parametrize("rows,col0", [(256, 49_920), (2048, 0)])
+def test_popcount_kernel_at_100k_columns(cuda, rows, col0):
+    """B3 at the estimator refinement's width: a row tile of K=8's 32
+    cluster-plane words against all 100,000 columns."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    cols = torch.randint(-2**31, 2**31 - 1, (32, 100_000), generator=g,
+                         device=cuda, dtype=torch.int32)
+    tile = cols[:, col0:col0 + rows]
+    got = popcount.packed_coassoc_counts_kernel(tile, cols)
+    for c in range(0, 100_000, 10_000):
+        assert torch.equal(got[:, c:c + 10_000],
+                           popcount_accumulate(tile, cols[:, c:c + 10_000]))
+
+
+@pytest.mark.parametrize("off", [0, 50_000, 99_000])
+def test_hist_count_entry_at_100k_columns(cuda, off):
+    """B1's count entry on a (1000, 100,000) int32 tile at a row offset in
+    the triangle: equal to the plain version, every pair counted once."""
+    n, rows = 100_000, 1000
+    mij, iij = _count_tiles(cuda, rows, n, "bimodal")
+    got = torch.zeros(20, dtype=torch.int64, device=cuda)
+    ref = torch.zeros(20, dtype=torch.int64, device=cuda)
+    hist.consensus_hist_from_counts_kernel(mij, iij, n, off, 20, got)
+    hist.consensus_hist_from_counts_plain(mij, iij, n, off, 20, ref)
+    assert torch.equal(got, ref)
+    assert int(got.sum()) == sum(max(0, n - 1 - (off + r))
+                                 for r in range(rows))
+
+
+def test_estimate_on_the_card(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    """A small estimate on the card: every sampled pair's counts equal the
+    card's dense Mij/Iij there, on both pair paths; the refinement's tiled
+    curve equals the dense curve of its K; B2, the assignment, B3 and B1
+    launched."""
+    from consensus_clustering_tpu_torch import make_blobs
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.estimator.engine import (
+        PairConsensusEngine,
+    )
+    from consensus_clustering_tpu_torch.estimator.tiled import (
+        exact_curves_for_k,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.ops import launch_counts
+    from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+    x, _ = make_blobs(n_samples=400, n_features=6, centers=4,
+                      cluster_std=1.0, random_state=3)
+    x = x.astype(np.float32)
+    config = SweepConfig(n_samples=400, n_features=6, k_values=(2, 4, 6),
+                         n_iterations=40, store_matrices=True)
+    dense = run_sweep(KMeans(n_init=2), config, x, 11, device=cuda)
+    before = launch_counts()
+    for path in ("dense", "packed"):
+        est_config = SweepConfig(
+            n_samples=400, n_features=6, k_values=(2, 4, 6),
+            n_iterations=40, store_matrices=False, stream_h_block=16,
+            accum_repr=path)
+        out = PairConsensusEngine(KMeans(n_init=2), est_config,
+                                  n_pairs=5000, device=cuda).run(
+            x, 11, 40, return_state=True)
+        ps = out["pair_state"]
+        pi, pj = ps["pair_i"], ps["pair_j"]
+        np.testing.assert_array_equal(ps["iij"], dense["iij"][pi, pj])
+        np.testing.assert_array_equal(
+            ps["mij"], np.stack([m[pi, pj] for m in dense["mij"]]))
+    exact = exact_curves_for_k(KMeans(n_init=2), est_config, x, 11, 4,
+                               tile_rows=96, device=cuda)
+    np.testing.assert_array_equal(exact["cdf"], dense["cdf"][1])
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    assert all(launched[k] > 0 for k in ("lloyd", "assign", "popcount",
+                                         "hist")), launched

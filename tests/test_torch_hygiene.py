@@ -6,7 +6,10 @@
 - Features not ported yet raise ``NotImplementedError``.
 - The subprocess also drives every clusterer (GMM, agglomerative,
   spectral, an sklearn estimator on the host backend), ``k_batch_size``,
-  consensus labels and ``fit_predict``.
+  consensus labels and ``fit_predict``, the estimator (``mode="estimate"``
+  and ``"auto"``, ``exact_best_k``) and an append on a plane store; the
+  ``ast`` scan covers every subpackage (``estimator/``, ``append/``,
+  ``serve/`` included).
 - The kernel modules import on the CPU, their wrappers take the plain
   versions there, and the build raises a clear error without ``nvcc``.
 """
@@ -60,6 +63,9 @@ def _forbidden(name):
 
 def test_no_module_imports_jax_or_the_reference_package():
     offenders = []
+    scanned = {os.path.relpath(os.path.dirname(p), PKG)
+               for p in _port_sources()}
+    assert {"estimator", "append", "serve", "ops", "parallel"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -100,6 +106,24 @@ for clusterer in (GaussianMixture(), AgglomerativeClustering(),
                                 store_matrices=True,
                                 compute_consensus_labels=True)
     assert len(other.fit_predict(x)) == 60
+import os, tempfile
+os.environ["CCTPU_MEMORY_BUDGET"] = "1000"
+est = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                          device="cpu", mode="auto", stream_h_block=4,
+                          exact_best_k=True).fit(x)
+assert est.metrics_["mode"] == "estimate" and "exact_best_k" in est.metrics_
+from consensus_clustering_tpu_torch.append import (
+    PlaneStore, bootstrap_generation, run_append)
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+with tempfile.TemporaryDirectory() as tmp:
+    store = PlaneStore(tmp)
+    bootstrap_generation(x[:50], config=SweepConfig(
+        n_samples=50, n_features=3, k_values=(2, 3), n_iterations=8,
+        store_matrices=False, stream_h_block=4, accum_repr="packed"),
+        clusterer=KMeans(), seed=0, store=store, device="cpu")
+    out = run_append(store, x, h_new=4, clusterer=KMeans(), device="cpu")
+    assert out["append"]["generation"] == 1
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -133,7 +157,8 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(mode="auto"), dict(mode="estimate"),
+    [dict(mesh=object()), dict(calibration_dir="calibration"),
+     dict(mode="estimate", mesh=object()),
      dict(k_interleave=True), dict(autotune=True),
      dict(plot_cdf=True)],
 )
