@@ -116,7 +116,25 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   Iij accounting exact, merged curves on the card equal to
                   the plain route on the card, generation 1 reloads and
                   verifies, no refresh recommended; prints the append's
-                  seconds beside the from-scratch stream's.
+                  seconds beside the from-scratch stream's;
+15. serve       — the port's ``ConsensusService`` on the card (the port's
+                  ``SweepExecutor`` on ``cuda``, ``fusion_max=2``, the fair
+                  schedule, the budget from ``resolve_memory_budget``),
+                  spoken to over HTTP on 127.0.0.1 with the headline data
+                  as JSON: A, the headline stream as a job (H=500, packed,
+                  blocks of 100: PAC equal to ``PINNED_PAC``, the memory
+                  measured on the device); A again (from the store, no
+                  run); B and C (H=200, seeds 101 and 102, queued behind A:
+                  fused, each equal to a solo ``executor.run`` of its
+                  spec); D (``progressive``, H=100: the estimate, then its
+                  refinement, inside the disclosed bound); E (1,000 rows of
+                  another seed's blobs appended to A's plane store, H=100:
+                  equal to ``run_append`` on a copy of the store);
+                  ``/healthz``, ``/metrics`` (counters equal to the requests)
+                  and ``/metrics.prom`` (parses).  Prints each request's
+                  HTTP codes and seconds (POST, queue wait, run, the rest
+                  of the attempt) and the kernels' launches in the phase,
+                  every one of which must be > 0.
                   The ``kernels`` phase also holds B2 and the assignment
                   at the estimator's 48 lanes of 80,000 rows, and B3 and
                   B1's count entry at the refinement's 2,048 x 100,000
@@ -136,6 +154,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -146,7 +165,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
           "stream_small", "resilience_small", "corr", "clusterers",
-          "estimate", "estimate_check", "refine", "append")
+          "estimate", "estimate_check", "refine", "append", "serve")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -2260,6 +2279,295 @@ def phase_append(torch, results):
     _record_launches(results, "append", launches)
 
 
+# -- phase 15 ------------------------------------------------------------
+
+#: The serve phase's requests: A at the headline (its PAC must equal
+#: ``PINNED_PAC``), B and C fused, D progressive, E an append to A.
+SERVE = dict(n_extra=1000, h_a=500, h_bc=200, h_d=100, h_e=100, block=100)
+
+
+def _http(base, path, body=None):
+    """(status, parsed json or text, seconds) of one HTTP round trip."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            raw, code = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, code = e.read(), e.code
+    seconds = time.perf_counter() - t0
+    text = raw.decode()
+    try:
+        return code, json.loads(text), seconds
+    except ValueError:
+        return code, text, seconds
+
+
+def _await_job(base, job_id, budget=600.0):
+    deadline = time.time() + budget
+    while time.time() < deadline:
+        code, rec, _ = _http(base, f"/jobs/{job_id}")
+        if code != 200 or rec["status"] in ("done", "failed", "timeout",
+                                            "cancelled"):
+            return rec
+        time.sleep(0.1)
+    return {"status": "still running", "job_id": job_id}
+
+
+def _split(post_seconds, rec):
+    """A finished job's seconds: the POST round trip (the host's JSON
+    parse, validation, fingerprint and admission), the queue wait, the
+    engine run, and the rest of the attempt (engine lookup, result
+    shaping and the store write)."""
+    result = rec.get("result") or {}
+    run = (result.get("timings") or {}).get("run_seconds")
+    started, finished = rec.get("started_at"), rec.get("finished_at")
+    out = {"post_seconds": post_seconds, "run_seconds": run}
+    if started is not None:
+        out["queue_wait_seconds"] = started - rec["submitted_at"]
+    if started is not None and finished is not None and run is not None:
+        out["result_write_seconds"] = finished - started - run
+    return out
+
+
+def phase_serve(torch, results):
+    """The port's HTTP service on the card at the headline's width: a
+    ``ConsensusService`` over the port's ``SweepExecutor`` (``cuda``,
+    ``fusion_max=2``, the fair schedule, the budget from
+    ``resolve_memory_budget``) answering, over HTTP on 127.0.0.1: A, the
+    headline stream (H=500, K=2..20, packed, blocks of 100: PAC equal to
+    ``PINNED_PAC``), A again (from the store), B and C (H=200, seeds 101
+    and 102, queued behind A so the scheduler fuses them: each equal to
+    a solo run of its spec), D (``progressive``, H=100: the estimate,
+    then its refinement inside the bound), and E (an append of 1,000 rows
+    of another seed's blobs to A's plane store, H=100: equal to
+    ``run_append`` on a copy of the store), with the launch counts set to
+    0 just before the first request and read after the last."""
+    from consensus_clustering_tpu_torch import make_blobs
+    from consensus_clustering_tpu_torch.append import PlaneStore, run_append
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.obs.prom import validate_exposition
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from consensus_clustering_tpu_torch.serve import (
+        ConsensusService,
+        SweepExecutor,
+        parse_job_spec,
+        resolve_memory_budget,
+    )
+
+    cfg = SERVE
+    x = headline_data()
+    n = x.shape[0]
+    extra, _ = make_blobs(n_samples=cfg["n_extra"], n_features=x.shape[1],
+                          centers=8, cluster_std=3.0, random_state=1)
+    x_grown = np.concatenate([x, extra.astype(np.float32)])
+    ks = list(HEADLINE["K_range"])
+    common = {"k": ks, "stream_h_block": cfg["block"],
+              "accum_repr": "packed", "clusterer_options": {"n_init": 3}}
+    body_a = {"data": x.tolist(), "config": {
+        **common, "iterations": cfg["h_a"], "seed": 23}}
+    body_bc = [{"data": x.tolist(), "config": {
+        **common, "iterations": cfg["h_bc"], "seed": seed, "tenant": t}}
+        for seed, t in ((101, "b"), (102, "c"))]
+    body_d = {"data": x.tolist(), "config": {
+        "k": ks, "iterations": cfg["h_d"], "seed": 23,
+        "stream_h_block": cfg["block"], "mode": "progressive",
+        "clusterer_options": {"n_init": 3}}}
+    budget = resolve_memory_budget(device="cuda")
+    executor = SweepExecutor(device="cuda")
+    report = {"phase": "serve", "nvidia_smi": smi_line(),
+              "memory_budget_bytes": budget, "requests": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = ConsensusService(store_dir=os.path.join(tmp, "store"), port=0,
+                               executor=executor, fusion_max=2,
+                               schedule="fair", memory_budget_bytes=budget)
+        svc.start()
+        base = f"http://127.0.0.1:{svc.port}"
+        try:
+            reset_launch_counts()
+            t_phase = time.perf_counter()
+            code_a, rec_a, post_a = _http(base, "/jobs", body_a)
+            posted = [_http(base, "/jobs", b) for b in body_bc]
+            done_a = _await_job(base, rec_a["job_id"])
+            runs_before_a2 = executor.run_count
+            code_a2, rec_a2, post_a2 = _http(base, "/jobs", body_a)
+            runs_after_a2 = executor.run_count
+            done_bc = [_await_job(base, rec["job_id"])
+                       for _, rec, _ in posted]
+            plane_copy = os.path.join(tmp, "planes_copy")
+            planes = svc.store.plane_dir(done_a["fingerprint"])
+            check(os.path.isdir(planes), "serve A: no plane store written")
+            if os.path.isdir(planes):
+                shutil.copytree(planes, plane_copy)
+            code_d, rec_d, post_d = _http(base, "/jobs", body_d)
+            done_d = _await_job(base, rec_d["job_id"])
+            cont_id = done_d.get("continuation_job_id")
+            done_r = (_await_job(base, cont_id) if cont_id
+                      else {"status": "no continuation"})
+            body_e = {"data": x_grown.tolist(), "config": {
+                **common, "iterations": cfg["h_e"], "seed": 23,
+                "mode": "append", "append_parent": done_a["fingerprint"]}}
+            code_e, rec_e, post_e = _http(base, "/jobs", body_e)
+            done_e = _await_job(base, rec_e["job_id"])
+            expected = {"run_count": 6, "fused_executions_total": 1,
+                        "fused_jobs_total": 2, "estimator_runs_total": 1,
+                        "append_runs_total": 1,
+                        "plane_stores_written_total": 2}
+            # The scheduler writes a job's status before its last
+            # counters: wait for the side effects, not the status.
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                code_m, metrics, _ = _http(base, "/metrics")
+                got = {k: metrics.get("sweeps_executed" if k == "run_count"
+                                      else k) for k in expected}
+                if got == expected:
+                    break
+                time.sleep(0.2)
+            code_h, health, _ = _http(base, "/healthz")
+            code_p, prom, _ = _http(base, "/metrics.prom")
+            serve_seconds = time.perf_counter() - t_phase
+            launches = launch_counts()
+        finally:
+            svc.stop()
+        # Oracles, after the service's requests (their launches are not
+        # the service's): B and C solo, E's append on the store's copy.
+        t0 = time.perf_counter()
+        solo = [executor.run(*parse_job_spec(b)) for b in body_bc]
+        if not os.path.isdir(plane_copy):
+            raise RuntimeError("serve: request A failed: "
+                               f"{done_a.get('error')}; see the checks")
+        direct = run_append(
+            PlaneStore(plane_copy), x_grown, h_new=cfg["h_e"],
+            clusterer=KMeans(n_init=3), stream_h_block=cfg["block"],
+            k_values=tuple(ks), subsampling=0.8, bins=20,
+            pac_interval=(0.1, 0.9), parity_zeros=True, dtype="float32",
+            clusterer_name="kmeans", clusterer_options={"n_init": 3},
+            device="cuda")
+        oracle_seconds = time.perf_counter() - t0
+
+    res_a = done_a.get("result") or {}
+    pac_a = [res_a.get("pac_area", {}).get(str(k)) for k in ks]
+    same_pinned = [p == q for p, q in zip(pac_a, PINNED_PAC)]
+    mem_a = res_a.get("memory") or {}
+    report["requests"]["A"] = {
+        "http": [code_a], "status": done_a["status"],
+        **_split(post_a, done_a), "pac": pac_a,
+        "pac_equal_pinned_per_k": same_pinned,
+        "memory": {k: mem_a.get(k) for k in (
+            "estimated_bytes", "measured_bytes", "measurement_source",
+            "preflight_accuracy", "peak_delta_bytes")},
+        "peak_device_bytes": (mem_a.get("device_after") or {}).get(
+            "peak_bytes_in_use"),
+        "streaming": {k: (res_a.get("streaming") or {}).get(k) for k in (
+            "h_block", "h_effective", "n_blocks_run", "checkpoint_writes")},
+        "autotune": res_a.get("autotune"),
+        "plane_store": res_a.get("plane_store")}
+    check(done_a["status"] == "done", f"serve A: {done_a.get('error')}")
+    check(all(same_pinned), "serve A: per-K PAC differs from the pinned run "
+                            f"at K={[k for k, e in zip(ks, same_pinned) if not e]}")
+    acc = mem_a.get("preflight_accuracy")
+    check(mem_a.get("measurement_source") == "device"
+          and (mem_a.get("measured_bytes") or 0) > 0
+          and acc is not None and math.isfinite(acc),
+          f"serve A: memory disclosure {mem_a}")
+
+    report["requests"]["A_again"] = {
+        "http": [code_a2], "post_seconds": post_a2,
+        "from_cache": rec_a2.get("from_cache"),
+        "run_count_before_after": [runs_before_a2, runs_after_a2]}
+    # A second run of A would also show in the total run_count (6) below.
+    check(code_a2 == 200 and rec_a2.get("from_cache") is True
+          and runs_after_a2 == runs_before_a2
+          and (rec_a2.get("result") or {}).get("result_fingerprint")
+          == res_a.get("result_fingerprint"),
+          f"serve A': not served from the store: {code_a2}")
+
+    for name, (code, rec, post), done, oracle in zip(
+            "BC", posted, done_bc, solo):
+        res = done.get("result") or {}
+        same = {k: res.get(k) == oracle[k] for k in (
+            "result_fingerprint", "pac_area", "best_k")}
+        report["requests"][name] = {
+            "http": [code], "status": done["status"], **_split(post, done),
+            "fused": res.get("fused"), "equal_solo": same,
+            "best_k": res.get("best_k")}
+        check(done["status"] == "done", f"serve {name}: {done.get('error')}")
+        check(res.get("fused") == {"batch": 2}, f"serve {name}: not fused: "
+                                                f"{res.get('fused')}")
+        check(all(same.values()), f"serve {name}: fused != solo: {same}")
+
+    res_d, res_r = done_d.get("result") or {}, done_r.get("result") or {}
+    bound = (res_d.get("estimator") or {}).get("pac_error_bound")
+    best_d = res_d.get("best_k")
+    est_pac = (res_d.get("pac_area") or {}).get(str(best_d))
+    ref_pac = (res_r.get("pac_area") or {}).get(str(best_d))
+    ordered = (done_d.get("finished_at") or 0) <= (
+        done_r.get("finished_at") or -1)
+    report["requests"]["D"] = {
+        "http": [code_d], "status": [done_d["status"], done_r["status"]],
+        "estimate": _split(post_d, done_d),
+        "refine": {"queue_wait_seconds": (done_r.get("started_at") or 0)
+                   - (done_r.get("submitted_at") or 0),
+                   "run_seconds": (res_r.get("timings") or {}).get(
+                       "run_seconds")},
+        "best_k": best_d, "estimate_pac": est_pac, "refined_pac": ref_pac,
+        "pac_error_bound": bound, "estimate_first": ordered,
+        "n_pairs": (res_d.get("estimator") or {}).get("n_pairs")}
+    check(done_d["status"] == "done" and done_r["status"] == "done"
+          and res_d.get("mode") == "estimate" and res_r.get("refined"),
+          f"serve D: {done_d.get('error')} {done_r.get('error')}")
+    check(ordered, "serve D: the refinement finished before the estimate")
+    check(None not in (bound, est_pac, ref_pac)
+          and abs(ref_pac - est_pac) <= bound,
+          f"serve D: refined PAC {ref_pac} vs estimate {est_pac} outside "
+          f"the bound {bound}")
+
+    res_e = done_e.get("result") or {}
+    ap = res_e.get("append") or {}
+    direct_pac = {str(k): float(p) for k, p in zip(ks, direct["pac_area"])}
+    same_direct = res_e.get("pac_area") == direct_pac and ap.get(
+        "h_total") == direct["append"]["h_total"]
+    report["requests"]["E"] = {
+        "http": [code_e], "status": done_e["status"], **_split(post_e, done_e),
+        "append": {k: v for k, v in ap.items() if k != "staleness"},
+        "staleness": ap.get("staleness"), "equal_direct_run_append":
+        same_direct}
+    check(done_e["status"] == "done" and not ap.get("fallback")
+          and ap.get("iij_bit_identical") is True,
+          f"serve E: {done_e.get('error')} {ap}")
+    check(same_direct, "serve E: merged curves != run_append on the copy")
+
+    try:
+        prom_problems = validate_exposition(prom)
+    except Exception as e:  # noqa: BLE001 -- a parser failure is the finding
+        prom_problems = [repr(e)]
+    report.update({
+        "healthz": health, "metrics_http": [code_m, code_h, code_p],
+        "metrics_counters": got, "metrics_expected": expected,
+        "prom_problems": prom_problems, "launches": launches,
+        "serve_seconds": serve_seconds, "oracle_seconds": oracle_seconds,
+        "peak_device_bytes_since_last_reset":
+            torch.cuda.max_memory_allocated()})
+    emit(report)
+    check(code_h == 200 and health.get("backend") == "torch-cuda",
+          f"serve: healthz {health}")
+    check(code_m == 200 and got == expected,
+          f"serve: /metrics counters {got} != {expected}")
+    check(code_p == 200 and prom_problems == [],
+          f"serve: /metrics.prom does not parse: {prom_problems[:3]}")
+    check(all(launches[k] > 0 for k in KERNEL_NAMES),
+          f"serve: a kernel of the path never launched: {launches}")
+    _record_launches(results, "serve", launches)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES))
@@ -2306,6 +2614,8 @@ def main(argv=None):
         phase_refine(torch, results)
     if "append" in phases:
         phase_append(torch, results)
+    if "serve" in phases:
+        phase_serve(torch, results)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)

@@ -50,6 +50,13 @@ def validate_fuse_block(fuse_block: str) -> str:
 #: exact job's footprint exceeds the memory budget).
 MODES = ("exact", "estimate", "auto")
 
+#: Job modes the serving surface accepts (``config.mode`` in ``POST
+#: /jobs``): the library's modes plus ``progressive`` (the estimate now,
+#: an exact refinement of its chosen K after) and ``append`` (new
+#: resamples over a grown dataset, merged with a stored parent's planes).
+#: The scheduler's internal continuation mode ``refine`` is in neither.
+SERVING_MODES = MODES + ("progressive", "append")
+
 
 def autotune_stream_block(n_iterations: int) -> int:
     """Default resamples per block where a path streams and the caller

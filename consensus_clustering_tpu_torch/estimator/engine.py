@@ -91,7 +91,10 @@ from consensus_clustering_tpu_torch.utils.checkpoint import (
     data_fingerprint,
     estimator_stream_fingerprint,
 )
-from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+from consensus_clustering_tpu_torch.utils.metrics import (
+    device_memory_stats,
+    in_peak_memory_window,
+)
 
 
 def verify_pair_state_frame(
@@ -335,6 +338,7 @@ class PairConsensusEngine:
 
     # -- the driver ------------------------------------------------------
 
+    @in_peak_memory_window
     def run(
         self,
         x: np.ndarray,
@@ -381,9 +385,6 @@ class PairConsensusEngine:
         n, m, hb = config.n_samples, self.n_pairs, self._hb
         device = self.device
         on_cuda = device.type == "cuda"
-        if on_cuda:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
         launches0 = launch_counts()
         t0 = time.perf_counter()
         xd = torch.as_tensor(np.asarray(x)).to(device=device,

@@ -48,7 +48,10 @@ from consensus_clustering_tpu_torch.parallel.sweep import (
     launches_since,
     resample_lane_keys,
 )
-from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+from consensus_clustering_tpu_torch.utils.metrics import (
+    device_memory_stats,
+    peak_memory_window,
+)
 
 
 def collect_resample_labels(
@@ -153,26 +156,24 @@ def exact_curves_for_k(
     device = resolve_device(device)
     on_cuda = device.type == "cuda"
     build_kernels(device)
-    if on_cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    launches0 = launch_counts()
-    t0 = time.perf_counter()
-    indices, labels = collect_resample_labels(clusterer, config, x, seed, k,
-                                              device=device)
-    if on_cuda:
-        torch.cuda.synchronize(device)
-    collect_seconds = time.perf_counter() - t0
-    lo, hi = config.pac_idx
-    out = tiled_exact_curves(
-        indices, labels, config.n_samples, config.bins, lo, hi,
-        parity_zeros=config.parity_zeros, tile_rows=tile_rows,
-        tile_callback=tile_callback,
-    )
-    out["timing"] = {
-        "seconds": time.perf_counter() - t0,
-        "collect_seconds": collect_seconds,
-        "kernel_launches": launches_since(launches0),
-        "device_memory": device_memory_stats(device) if on_cuda else {},
-    }
-    return out
+    with peak_memory_window(device):
+        launches0 = launch_counts()
+        t0 = time.perf_counter()
+        indices, labels = collect_resample_labels(clusterer, config, x, seed, k,
+                                                  device=device)
+        if on_cuda:
+            torch.cuda.synchronize(device)
+        collect_seconds = time.perf_counter() - t0
+        lo, hi = config.pac_idx
+        out = tiled_exact_curves(
+            indices, labels, config.n_samples, config.bins, lo, hi,
+            parity_zeros=config.parity_zeros, tile_rows=tile_rows,
+            tile_callback=tile_callback,
+        )
+        out["timing"] = {
+            "seconds": time.perf_counter() - t0,
+            "collect_seconds": collect_seconds,
+            "kernel_launches": launches_since(launches0),
+            "device_memory": device_memory_stats(device) if on_cuda else {},
+        }
+        return out

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Dict, Iterable, Iterator, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,6 +26,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# Serialises builds and loads: two serve worker threads reaching a kernel
+# first would otherwise both run nvcc for it.
+_LOCK = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -83,44 +87,46 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the libraries of ``names`` that are not built yet, one
     ``nvcc`` per source, all started together.  Returns name -> the
     compiler's ``-Xptxas -v`` report (empty when already built)."""
-    names = list(names)
-    pending = {n: library_path(n) for n in names}
-    pending = {n: p for n, p in pending.items() if not os.path.isfile(p)}
-    reports = {n: "" for n in names}
-    if not pending:
+    with _LOCK:
+        names = list(names)
+        pending = {n: library_path(n) for n in names}
+        pending = {n: p for n, p in pending.items() if not os.path.isfile(p)}
+        reports = {n: "" for n in names}
+        if not pending:
+            return reports
+        nvcc = find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name, path in pending.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[name] = (tmp, path, subprocess.Popen(
+                nvcc_command(nvcc, os.path.join(CSRC_DIR, f"{name}.cu"), tmp),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        failures = []
+        for name, (tmp, path, proc) in procs.items():
+            output, _ = proc.communicate()
+            reports[name] = output
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{output}")
+            else:
+                os.replace(tmp, path)
+        if failures:
+            raise KernelBuildError("kernel build failed: " + "\n".join(failures))
         return reports
-    nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name, path in pending.items():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        procs[name] = (tmp, path, subprocess.Popen(
-            nvcc_command(nvcc, os.path.join(CSRC_DIR, f"{name}.cu"), tmp),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
-    failures = []
-    for name, (tmp, path, proc) in procs.items():
-        output, _ = proc.communicate()
-        reports[name] = output
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{output}")
-        else:
-            os.replace(tmp, path)
-    if failures:
-        raise KernelBuildError("kernel build failed: " + "\n".join(failures))
-    return reports
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(library_path(name))
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            _LOADED[name] = lib
+        return lib
 
 
 @contextlib.contextmanager

@@ -36,7 +36,10 @@ from consensus_clustering_tpu_torch.parallel.sweep import (
     curves_from_counts,
     launches_since,
 )
-from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+from consensus_clustering_tpu_torch.utils.metrics import (
+    device_memory_stats,
+    peak_memory_window,
+)
 from consensus_clustering_tpu_torch.utils.progress import progress_iter
 
 
@@ -89,58 +92,56 @@ def run_host_sweep(
     n = config.n_samples
     x = np.asarray(x)
     compile_seconds = build_kernels(device)
-    if on_cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    launches0 = launch_counts()
-    t0 = time.perf_counter()
-    key_resample = rng.split(rng.prng_key(seed, device))[0]
-    indices_dev = resample_indices(
-        key_resample, n, config.n_iterations, config.n_sub
-    )
-    iij = cosample_counts(indices_dev, n)
-    indices = indices_dev.cpu().numpy()
-
-    counts, mijs, cijs = [], [], []
-    label_seconds, accumulate_seconds = [], []
-    for k in config.k_values:
-        t_label = time.perf_counter()
-        labels = _host_labels(clusterer, config, x, indices, k, seed,
-                              progress, n_jobs)
-        label_seconds.append(time.perf_counter() - t_label)
-        t_acc = time.perf_counter()
-        mij = coassociation_counts(
-            torch.as_tensor(labels, device=device), indices_dev, n,
-            config.k_max, config.chunk_size,
+    with peak_memory_window(device):
+        launches0 = launch_counts()
+        t0 = time.perf_counter()
+        key_resample = rng.split(rng.prng_key(seed, device))[0]
+        indices_dev = resample_indices(
+            key_resample, n, config.n_iterations, config.n_sub
         )
-        cij = consensus_matrix(mij, iij)
-        counts.append(consensus_hist_counts(cij, n, 0, config.bins))
+        iij = cosample_counts(indices_dev, n)
+        indices = indices_dev.cpu().numpy()
+
+        counts, mijs, cijs = [], [], []
+        label_seconds, accumulate_seconds = [], []
+        for k in config.k_values:
+            t_label = time.perf_counter()
+            labels = _host_labels(clusterer, config, x, indices, k, seed,
+                                  progress, n_jobs)
+            label_seconds.append(time.perf_counter() - t_label)
+            t_acc = time.perf_counter()
+            mij = coassociation_counts(
+                torch.as_tensor(labels, device=device), indices_dev, n,
+                config.k_max, config.chunk_size,
+            )
+            cij = consensus_matrix(mij, iij)
+            counts.append(consensus_hist_counts(cij, n, 0, config.bins))
+            if config.store_matrices:
+                mijs.append(mij.cpu().numpy())
+                cijs.append(cij.cpu().numpy())
+            if on_cuda:
+                torch.cuda.synchronize(device)
+            accumulate_seconds.append(time.perf_counter() - t_acc)
+        out = curves_from_counts(config, counts)
+        host = {name: value.cpu().numpy() for name, value in out.items()}
         if config.store_matrices:
-            mijs.append(mij.cpu().numpy())
-            cijs.append(cij.cpu().numpy())
+            host["iij"] = iij.cpu().numpy()
+            host["mij"] = np.stack(mijs)
+            host["cij"] = np.stack(cijs)
         if on_cuda:
             torch.cuda.synchronize(device)
-        accumulate_seconds.append(time.perf_counter() - t_acc)
-    out = curves_from_counts(config, counts)
-    host = {name: value.cpu().numpy() for name, value in out.items()}
-    if config.store_matrices:
-        host["iij"] = iij.cpu().numpy()
-        host["mij"] = np.stack(mijs)
-        host["cij"] = np.stack(cijs)
-    if on_cuda:
-        torch.cuda.synchronize(device)
-    run_seconds = time.perf_counter() - t0
-    total = config.n_iterations * len(config.k_values)
-    host["timing"] = {
-        "compile_seconds": compile_seconds,
-        "run_seconds": run_seconds,
-        "resamples_per_second": total / max(run_seconds, 1e-9),
-        "label_seconds_per_k": label_seconds,
-        "accumulate_seconds_per_k": accumulate_seconds,
-        "device": (
-            torch.cuda.get_device_name(device) if on_cuda else "cpu"
-        ),
-        "device_memory": device_memory_stats(device) if on_cuda else {},
-        "kernel_launches": launches_since(launches0),
-    }
-    return host
+        run_seconds = time.perf_counter() - t0
+        total = config.n_iterations * len(config.k_values)
+        host["timing"] = {
+            "compile_seconds": compile_seconds,
+            "run_seconds": run_seconds,
+            "resamples_per_second": total / max(run_seconds, 1e-9),
+            "label_seconds_per_k": label_seconds,
+            "accumulate_seconds_per_k": accumulate_seconds,
+            "device": (
+                torch.cuda.get_device_name(device) if on_cuda else "cpu"
+            ),
+            "device_memory": device_memory_stats(device) if on_cuda else {},
+            "kernel_launches": launches_since(launches0),
+        }
+        return host

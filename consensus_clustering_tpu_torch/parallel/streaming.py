@@ -44,6 +44,7 @@ clustered (a per-lane result, so skipping them changes nothing).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -97,7 +98,10 @@ from consensus_clustering_tpu_torch.utils.checkpoint import (
     data_fingerprint,
     stream_fingerprint,
 )
-from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+from consensus_clustering_tpu_torch.utils.metrics import (
+    device_memory_stats,
+    in_peak_memory_window,
+)
 
 #: Rows of a packed evaluation tile (before rounding up to a multiple of 8).
 TILE_ROWS = 256
@@ -344,11 +348,6 @@ class StreamingSweep:
         cij = torch.stack([consensus_matrix(m, iij) for m in mij])
         return {"mij": mij, "iij": iij, "cij": cij}
 
-    def run_fused(self, *args, **kwargs):
-        """The reference's batch axis over k jobs (the serve fusion
-        path); not ported yet."""
-        raise not_ported("run_fused (the serve batch axis)", "A10")
-
     # -- resilience ------------------------------------------------------
 
     def _state_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -419,6 +418,7 @@ class StreamingSweep:
 
     # -- the driver ------------------------------------------------------
 
+    @in_peak_memory_window
     def run(
         self,
         x: np.ndarray,
@@ -506,9 +506,6 @@ class StreamingSweep:
             )
         device = self.device
         on_cuda = device.type == "cuda"
-        if on_cuda:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
         launches0 = launch_counts()
         t0 = time.perf_counter()
         xd = torch.as_tensor(np.asarray(x)).to(device=device,
@@ -701,6 +698,70 @@ class StreamingSweep:
             if self.fused_kernel is not None:
                 out["timing"]["fused_kernel"] = self.fused_kernel
         return out
+
+
+    # -- the fused driver (the serve batch axis) -------------------------
+
+    def run_fused(
+        self,
+        xs: List[np.ndarray],
+        seeds: List[int],
+        n_iterations: int,
+        block_callback: Optional[
+            Callable[[int, int, int, List[float]], None]
+        ] = None,
+        checkpointers: Optional[List[Optional[StreamCheckpointer]]] = None,
+        integrity_check_every: int = 0,
+    ) -> List[Dict[str, Any]]:
+        """Stream k same-shape sweeps as one batch: the serve fusion path
+        (reference ``StreamingSweep.run_fused``).
+
+        ``xs``/``seeds`` are k >= 2 independent jobs at this engine's
+        shape and one ``n_iterations``.  The jobs run one after another
+        through :meth:`run` (the *looping* design, ``PERF.md`` §6: every
+        clusterer's lanes keep their solo batches, where stacking k jobs'
+        lanes into one call would put GMM and spectral lanes in batches
+        whose GEMMs round apart on the card), so each job's curves,
+        trajectory and frames are its solo run's, bit for bit.
+
+        Narrower than :meth:`run`, as the reference: no adaptive stop,
+        and each of ``checkpointers`` gets the frames its job's solo run
+        writes, under its solo fingerprint, so a solo retry resumes them.
+        The invariant sentinel checks every job at
+        ``integrity_check_every``; a breach aborts the batch.
+        ``block_callback(job, block, h_done, pac_list)`` fires per job per
+        block.  Returns one :meth:`run` host dict per job.
+        """
+        k = len(xs)
+        if k < 2:
+            raise ValueError(f"run_fused needs >= 2 jobs, got {k}")
+        if len(seeds) != k:
+            raise ValueError("xs and seeds must align")
+        if checkpointers is not None and len(checkpointers) != k:
+            raise ValueError("checkpointers must align with xs")
+        if self.config.adaptive_tol is not None:
+            raise ValueError("fused jobs take no adaptive stop")
+        shape = (self.config.n_samples, self.config.n_features)
+        for x in xs:
+            if tuple(x.shape) != shape:
+                raise ValueError(
+                    f"fused job shape {tuple(x.shape)} != engine shape "
+                    f"{shape}"
+                )
+        checkpointers = checkpointers or [None] * k
+        return [
+            self.run(
+                x, int(seed), n_iterations,
+                block_callback=(
+                    None if block_callback is None
+                    else functools.partial(block_callback, i)
+                ),
+                checkpointer=checkpointer,
+                integrity_check_every=int(integrity_check_every),
+            )
+            for i, (x, seed, checkpointer) in enumerate(
+                zip(xs, seeds, checkpointers))
+        ]
 
 
 def run_streaming_sweep(

@@ -44,7 +44,10 @@ from consensus_clustering_tpu_torch.ops.resample import (
     cosample_counts,
     resample_indices,
 )
-from consensus_clustering_tpu_torch.utils.metrics import device_memory_stats
+from consensus_clustering_tpu_torch.utils.metrics import (
+    device_memory_stats,
+    peak_memory_window,
+)
 
 #: The CUDA sources every sweep builds before it runs on the card.
 KERNELS = ("hist", "lloyd", "popcount", "fused_block")
@@ -238,27 +241,25 @@ def run_sweep(
     compile_seconds = build_kernels(device)
     x_dev = torch.as_tensor(np.asarray(x)).to(device)
     key = rng.prng_key(seed, device)
-    if on_cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    launches0 = launch_counts()
-    r0 = time.perf_counter()
-    out = sweep(x_dev, key)
-    host = {name: value.cpu().numpy() for name, value in out.items()}
-    if on_cuda:
-        torch.cuda.synchronize(device)
-    run_seconds = time.perf_counter() - r0
-    total = config.n_iterations * len(config.k_values)
-    host["timing"] = {
-        "compile_seconds": compile_seconds,
-        "run_seconds": run_seconds,
-        "resamples_per_second": total / max(run_seconds, 1e-9),
-        "device": (
-            torch.cuda.get_device_name(device) if on_cuda else "cpu"
-        ),
-        "device_memory": device_memory_stats(device) if on_cuda else {},
-        "kernel_launches": launches_since(launches0),
-    }
-    if config.accum_repr == "packed":
-        host["timing"]["packed_kernel"] = kernel_route(device)
-    return host
+    with peak_memory_window(device):
+        launches0 = launch_counts()
+        r0 = time.perf_counter()
+        out = sweep(x_dev, key)
+        host = {name: value.cpu().numpy() for name, value in out.items()}
+        if on_cuda:
+            torch.cuda.synchronize(device)
+        run_seconds = time.perf_counter() - r0
+        total = config.n_iterations * len(config.k_values)
+        host["timing"] = {
+            "compile_seconds": compile_seconds,
+            "run_seconds": run_seconds,
+            "resamples_per_second": total / max(run_seconds, 1e-9),
+            "device": (
+                torch.cuda.get_device_name(device) if on_cuda else "cpu"
+            ),
+            "device_memory": device_memory_stats(device) if on_cuda else {},
+            "kernel_launches": launches_since(launches0),
+        }
+        if config.accum_repr == "packed":
+            host["timing"]["packed_kernel"] = kernel_route(device)
+        return host

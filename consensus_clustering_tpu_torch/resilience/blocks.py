@@ -154,13 +154,25 @@ class StreamCheckpointer:
     configs/seeds/datasets.
 
     The driver writes every evaluated block; the ring keeps the last
-    :data:`KEEP` generations.  ``write_seconds_total`` sums the writer
-    thread's seconds (digest, serialisation, CRC, disk) over
-    ``writes_total`` writes.
+    ``keep`` generations (:data:`KEEP`; the serve executor keeps more
+    when the invariant sentinel runs every few blocks, so a caught
+    corruption still finds a verified generation behind it).
+    ``write_seconds_total`` sums the writer thread's seconds (digest,
+    serialisation, CRC, disk) over ``writes_total`` writes, and
+    ``on_write(seconds, block)``, when given, hears each one.
     """
 
-    def __init__(self, directory: str):
+    def __init__(
+        self,
+        directory: str,
+        keep: int = KEEP,
+        on_write: Optional[Callable[[float, int], None]] = None,
+    ):
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
         self.directory = directory
+        self.keep = int(keep)
+        self.on_write = on_write
         self.writes_total = 0
         self.write_seconds_total = 0.0
         #: Incremented by the streaming driver when a run actually
@@ -308,8 +320,11 @@ class StreamCheckpointer:
         os.replace(tmp, final)  # atomic: no torn gen-*.ckpt, ever
         faults.fire("checkpoint_post_write", index=block)
         self._prune(keep_latest=block)
+        seconds = time.perf_counter() - t0
         self.writes_total += 1
-        self.write_seconds_total += time.perf_counter() - t0
+        self.write_seconds_total += seconds
+        if self.on_write is not None:
+            self.on_write(seconds, block)
 
     # A temp file younger than this is treated as a LIVE write, not
     # crash garbage: a second checkpointer can share the directory (an
@@ -350,7 +365,7 @@ class StreamCheckpointer:
             ),
             reverse=True,
         )
-        for _, _, name in ranked[KEEP - 1:]:
+        for _, _, name in ranked[self.keep - 1:]:
             self._unlink(name)
         now = time.time()
         for name in os.listdir(self.directory):

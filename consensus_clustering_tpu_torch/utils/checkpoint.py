@@ -149,6 +149,29 @@ def estimator_stream_fingerprint(
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
+#: The port's package family in every serving job's fingerprint: a port
+#: result never dedups against a JAX-package result in a shared job store.
+JOB_BACKEND = "torch"
+
+
+def job_fingerprint(payload: Dict, x: np.ndarray) -> str:
+    """Fingerprint of a serving job: the job's JSON config ``payload``
+    (every semantics-bearing field, the seed included; the scheduler
+    adds the executor's :func:`backend_tag`, so a card result and a CPU
+    result never answer each other's job), the data's
+    :func:`data_fingerprint` and the port's family (:data:`JOB_BACKEND`).
+    Two submissions with equal payload and data collide, which is the
+    dedup the job store wants; the reference's ``job_fingerprint`` of
+    the same payload and data differs (its blob has no family).
+    """
+    blob = json.dumps(
+        {"config": payload, "data_sha": data_fingerprint(x),
+         "backend": JOB_BACKEND},
+        sort_keys=True,
+    ).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
 class SweepCheckpoint:
     """Directory of per-K npz checkpoints with a config fingerprint."""
 

@@ -2,10 +2,13 @@
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import logging
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
@@ -29,6 +32,51 @@ def device_memory_stats(device=None) -> Dict[str, int]:
         "bytes_limit": int(total),
         "bytes_free": int(free),
     }
+
+
+_window_lock = threading.Lock()
+_open_windows: Dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def peak_memory_window(device) -> Iterator[None]:
+    """One run's window on a CUDA device's allocator high-water.
+
+    The high-water belongs to the whole process, so it is reset at a
+    window's start only when no other window on the device is open: a
+    run never wipes the peak of another that is still executing (a
+    timed-out attempt's abandoned thread), and an engine run inside a
+    service run's window keeps the service's reading whole.  This is
+    the port's one place that resets the high-water.  Nothing happens
+    on the CPU.
+    """
+    device = torch.device(device)
+    on_cuda = device.type == "cuda"
+    if on_cuda and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    name = str(device)
+    with _window_lock:
+        _open_windows[name] = _open_windows.get(name, 0) + 1
+        if on_cuda and _open_windows[name] == 1:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+    try:
+        yield
+    finally:
+        with _window_lock:
+            _open_windows[name] -= 1
+
+
+def in_peak_memory_window(method):
+    """Run an engine's method inside :func:`peak_memory_window` on the
+    engine's ``device``."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with peak_memory_window(self.device):
+            return method(self, *args, **kwargs)
+
+    return wrapped
 
 
 class MetricsLogger:

@@ -586,3 +586,61 @@ def test_estimate_on_the_card(cuda):  # jaxlint: disable=JL018 -- GPU only; skip
     launched = {k: v - before[k] for k, v in launch_counts().items()}
     assert all(launched[k] > 0 for k in ("lloyd", "assign", "popcount",
                                          "hist")), launched
+
+
+def test_service_answers_a_job_on_the_card_and_fuses_bit_for_bit(cuda, tmp_path):
+    """A small job over HTTP through the port's service on the card (its
+    default executor), then two same-bucket jobs through ``run_fused``
+    equal to their solo runs on the card."""
+    import json
+    import time
+    import urllib.request
+
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from consensus_clustering_tpu_torch.serve import (
+        ConsensusService,
+        JobSpec,
+    )
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(0, .3, (150, 5)),
+                        rng.normal(3, .3, (150, 5))]).astype(np.float32)
+    svc = ConsensusService(store_dir=str(tmp_path), port=0).start()
+    try:
+        base = f"http://127.0.0.1:{svc.port}"
+        body = {"data": x.tolist(), "config": {
+            "k": [2, 3, 4], "iterations": 32, "stream_h_block": 16,
+            "accum_repr": "packed"}}
+        reset_launch_counts()
+        req = urllib.request.Request(base + "/jobs", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        job = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        for _ in range(1200):
+            rec = json.loads(urllib.request.urlopen(
+                f"{base}/jobs/{job['job_id']}", timeout=60).read())
+            if rec["status"] not in ("queued", "running"):
+                break
+            time.sleep(0.05)
+        assert rec["status"] == "done", rec.get("error")
+        result = rec["result"]
+        assert result["backend"] == "torch-cuda"
+        assert result["memory"]["measurement_source"] == "device"
+        assert result["memory"]["measured_bytes"] > 0
+        launches = launch_counts()
+        assert all(launches[k] > 0 for k in (
+            "lloyd", "assign", "popcount", "fused_block", "hist")), launches
+        executor = svc.executor
+        specs = [JobSpec(k_values=(2, 3, 4), n_iterations=32, seed=s,
+                         stream_h_block=16, accum_repr="packed")
+                 for s in (101, 102)]
+        xs = [x, x[::-1].copy()]
+        solo = [executor.run(s, xx) for s, xx in zip(specs, xs)]
+        fused = executor.run_fused(specs, xs)
+        for f, s in zip(fused, solo):
+            assert f["result_fingerprint"] == s["result_fingerprint"]
+            assert f["pac_area"] == s["pac_area"]
+    finally:
+        svc.stop()

@@ -7,9 +7,11 @@
 - The subprocess also drives every clusterer (GMM, agglomerative,
   spectral, an sklearn estimator on the host backend), ``k_batch_size``,
   consensus labels and ``fit_predict``, the estimator (``mode="estimate"``
-  and ``"auto"``, ``exact_best_k``) and an append on a plane store; the
-  ``ast`` scan covers every subpackage (``estimator/``, ``append/``,
-  ``serve/`` included).
+  and ``"auto"``, ``exact_best_k``), an append on a plane store and a
+  ``ConsensusService`` answering one job over HTTP; the ``ast`` scan
+  covers every subpackage (``estimator/``, ``append/``, ``serve/``,
+  ``serve/sched/``, ``serve/fleet/``, ``obs/`` and ``autotune/``
+  included).
 - The kernel modules import on the CPU, their wrappers take the plain
   versions there, and the build raises a clear error without ``nvcc``.
 """
@@ -19,6 +21,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -65,7 +68,8 @@ def test_no_module_imports_jax_or_the_reference_package():
     offenders = []
     scanned = {os.path.relpath(os.path.dirname(p), PKG)
                for p in _port_sources()}
-    assert {"estimator", "append", "serve", "ops", "parallel"} <= scanned
+    assert {"estimator", "append", "serve", "ops", "parallel", "obs",
+            "serve/sched", "serve/fleet", "autotune"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -124,6 +128,27 @@ with tempfile.TemporaryDirectory() as tmp:
         clusterer=KMeans(), seed=0, store=store, device="cpu")
     out = run_append(store, x, h_new=4, clusterer=KMeans(), device="cpu")
     assert out["append"]["generation"] == 1
+    import json, time, urllib.request
+    from consensus_clustering_tpu_torch.serve import (
+        ConsensusService, SweepExecutor)
+    svc = ConsensusService(store_dir=tmp, port=0,
+                           executor=SweepExecutor(device="cpu")).start()
+    try:
+        base = f"http://127.0.0.1:{svc.port}"
+        body = {"data": x.tolist(), "config": {"k": [2, 3], "iterations": 8}}
+        req = urllib.request.Request(base + "/jobs", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        job = json.loads(urllib.request.urlopen(req, timeout=30).read())
+        for _ in range(600):
+            rec = json.loads(urllib.request.urlopen(
+                f"{base}/jobs/{job['job_id']}", timeout=30).read())
+            if rec["status"] != "queued" and rec["status"] != "running":
+                break
+            time.sleep(0.05)
+        assert rec["status"] == "done", rec
+        assert rec["result"]["backend"] == "torch-cpu"
+    finally:
+        svc.stop()
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -269,3 +294,51 @@ def test_convert_from_reference_state():
     key = key_from_jax(np.asarray(jax.random.key_data(
         jax.random.PRNGKey(42))))
     np.testing.assert_array_equal(key.numpy(), [0, 42])
+
+
+def test_peak_memory_window_resets_only_when_alone(monkeypatch):
+    """The allocator's high-water is reset at a window's start only when
+    no other window on the device is open (a nested engine run, or an
+    abandoned attempt's thread), and only ``peak_memory_window`` resets
+    it anywhere in the port."""
+    from consensus_clustering_tpu_torch.utils import metrics
+
+    resets = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda device=None: resets.append(str(device)))
+    card = torch.device("cuda", 0)
+    opened, release = threading.Event(), threading.Event()
+
+    def abandoned_attempt():
+        with metrics.peak_memory_window(card):
+            opened.set()
+            release.wait(10)
+
+    with metrics.peak_memory_window(card):
+        with metrics.peak_memory_window(card):
+            pass
+        worker = threading.Thread(target=abandoned_attempt)
+        worker.start()
+        opened.wait(10)
+    # The attempt outlives the run that started beside it.
+    with metrics.peak_memory_window(card):
+        pass
+    with metrics.peak_memory_window("cpu"):
+        pass
+    assert resets == ["cuda:0"]
+    release.set()
+    worker.join(10)
+    with metrics.peak_memory_window(card):
+        pass
+    assert resets == ["cuda:0", "cuda:0"]
+
+    sites = []
+    for root, _, names in os.walk(PKG):
+        for name in names:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    if "reset_peak_memory_stats(" in f.read():
+                        sites.append(os.path.relpath(
+                            os.path.join(root, name), PKG))
+    assert sites == [os.path.join("utils", "metrics.py")]

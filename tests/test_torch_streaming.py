@@ -341,7 +341,8 @@ def test_features_left_for_later_raise():  # jaxlint: disable=JL018 -- every run
     x = np.zeros((20, 2), np.float32)
     with pytest.raises(NotImplementedError, match="A13"):
         StreamingSweep(KMeans(), config, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # run_fused is ported (the serve batch axis): one job is not a batch.
+    with pytest.raises(ValueError, match=">= 2 jobs"):
         engine.run_fused([x], [0], 8)
     with pytest.raises(ValueError, match="capture_state"):
         engine.run(x, 0, 8, capture_state=True)
