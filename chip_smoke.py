@@ -138,7 +138,28 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   The ``kernels`` phase also holds B2 and the assignment
                   at the estimator's 48 lanes of 80,000 rows, and B3 and
                   B1's count entry at the refinement's 2,048 x 100,000
-                  tiles.
+                  tiles;
+16. cli         — the command line, each subcommand in a process of its
+                  own: ``run`` at the headline's width (make_blobs N=5000
+                  d=50 seed 23, H=100, K=2..20, packed, blocks of 100,
+                  fused: per-K PAC equal to the library's fit of the same
+                  arguments bit for bit, every kernel launched) and on
+                  corr.csv (K=2..14, H=100, dense: inside the golden
+                  bands, B1 launched); ``autotune run --shapes smoke``
+                  (every gate holds, records carry the card's name) and
+                  ``show``, with ``ConsensusClustering(autotune=True)``
+                  at the ``stream_h_block`` and ``max_iter`` smoke
+                  buckets disclosing the records' tiers, PAC equal to the
+                  fit with the value pinned by hand; ``serve`` with that
+                  store answering the run's job (PAC equal to the run's,
+                  then from the store) and a second job (seed 24, H=500),
+                  ``serve-admin`` ``show`` (footprints, while the second
+                  job is queued or running),
+                  ``list``, ``trace``, ``report`` and ``bundle`` (the job
+                  record inside), then SIGINT (exit 0 within 10 s);
+                  ``bench`` and ``lint`` refused naming A18 and A15.
+                  Prints each step's wall time (for ``run``, the wall
+                  minus ``run_seconds``: process start and kernel load).
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -165,7 +186,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
           "stream_small", "resilience_small", "corr", "clusterers",
-          "estimate", "estimate_check", "refine", "append", "serve")
+          "estimate", "estimate_check", "refine", "append", "serve", "cli")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -2568,6 +2589,351 @@ def phase_serve(torch, results):
     _record_launches(results, "serve", launches)
 
 
+# The cli phase's run: the headline's width (N, d, K) at H=100.
+CLI = dict(n=5000, d=50, k_hi=20, h=100, block=100)
+
+
+def _cli_run_argv():
+    return ["run", "--dataset", "blobs", "--n-samples", str(CLI["n"]),
+            "--n-features", str(CLI["d"]), "--k", f"2:{CLI['k_hi']}",
+            "--iterations", str(CLI["h"]), "--stream", str(CLI["block"]),
+            "--accum-repr", "packed", "--fuse-block", "on", "--seed", "23"]
+
+
+def _cli_data():
+    from consensus_clustering_tpu_torch import make_blobs
+
+    x, _ = make_blobs(n_samples=CLI["n"], n_features=CLI["d"], centers=8,
+                      cluster_std=3.0, random_state=23)
+    return x.astype(np.float32)
+
+
+def _cli_start(args):
+    """Start ``python -m consensus_clustering_tpu_torch ARGS`` in a
+    process of its own, its output in temporary files (no pipe to fill);
+    :func:`_cli_finish` collects it."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "consensus_clustering_tpu_torch", *args],
+        cwd=REPO, stdout=out, stderr=err, text=True)
+    return proc, out, err, time.perf_counter()
+
+
+def _cli_finish(started, timeout):
+    """(exit code, stdout, stderr, wall seconds) of a :func:`_cli_start`
+    process; killed past ``timeout`` seconds (exit code None)."""
+    proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return None, "", f"killed after {timeout} s", time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    texts = []
+    for f in (out, err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return proc.returncode, texts[0], texts[1], wall
+
+
+def _cli(args, timeout):
+    """(exit code, stdout, stderr, wall seconds) of one subcommand."""
+    return _cli_finish(_cli_start(args), timeout)
+
+
+def _tail(text, n=800):
+    return text[-n:] if text else ""
+
+
+def _cli_run_steps(torch, results, tmp, report):
+    """Step 1: the headline-width streamed ``run`` and the dense corr
+    ``run``; returns the first run's result."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+
+    out = os.path.join(tmp, "run.json")
+    code, _, err, wall = _cli(_cli_run_argv() + ["--out", out], 600)
+    check(code == 0, f"cli run: exit {code}: {_tail(err)}")
+    if code != 0:
+        return None
+    with open(out) as f:
+        res = json.load(f)
+    m = res["metrics"]
+    ks = list(range(2, CLI["k_hi"] + 1))
+    lib = ConsensusClustering(
+        K_range=ks, n_iterations=CLI["h"], random_state=23,
+        clusterer_options={"n_init": 3}, store_matrices=False,
+        split_init=False, stream_h_block=CLI["block"], accum_repr="packed",
+        fuse_block="on").fit(_cli_data())
+    same = [res["pac_area"][str(k)] == lib.cdf_at_K_data[k]["pac_area"]
+            for k in ks]
+    launches = m["kernel_launches"]
+    report["steps"]["run"] = {
+        "wall_seconds": wall, "run_seconds": m["run_seconds"],
+        "start_and_load_seconds": wall - m["run_seconds"],
+        "compile_seconds": m["compile_seconds"], "launches": launches,
+        "strategy": m.get("timing"), "best_k": res["best_k"],
+        "pac_equal_library_per_k": same}
+    check(all(same), "cli run: per-K PAC differs from the library fit at "
+                     f"K={[k for k, e in zip(ks, same) if not e]}")
+    check(m.get("timing") == {"packed_kernel": "cuda", "fuse_block": "fused",
+                              "fused_kernel": "cuda"},
+          f"cli run: strategy {m.get('timing')}")
+    check(all(launches[k] > 0 for k in KERNEL_NAMES),
+          f"cli run: a kernel of the path never launched: {launches}")
+
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "reference_goldens.json")) as f:
+        goldens = json.load(f)
+    out = os.path.join(tmp, "corr.json")
+    code, _, err, wall = _cli(["run", "--dataset", "corr", "--k", "2:14",
+                               "--iterations", "100", "--out", out], 300)
+    check(code == 0, f"cli corr: exit {code}: {_tail(err)}")
+    if code == 0:
+        with open(out) as f:
+            corr = json.load(f)
+        ours = np.array([corr["pac_area"][str(k)] for k in range(2, 15)])
+        ref = np.array([goldens["kmeans_pac"][str(k)] for k in range(2, 15)])
+        inside = bool((np.abs(ours - ref) <= np.maximum(0.02, 0.25 * ref))
+                      .all())
+        cl = corr["metrics"]["kernel_launches"]
+        report["steps"]["corr"] = {
+            "wall_seconds": wall, "run_seconds": corr["metrics"][
+                "run_seconds"], "launches": cl, "pac": ours.tolist(),
+            "inside_golden_bands": inside}
+        check(inside, "cli corr: PAC outside the golden bands")
+        check(cl["hist"] == 13 and cl["lloyd"] > 0 and cl["assign"] > 0,
+              f"cli corr: launches {cl}")
+        launches = {k: n + cl[k] for k, n in launches.items()}
+    _record_launches(results, "cli", launches)
+    return res
+
+
+def _cli_autotune_steps(torch, tmp, report):
+    """Step 2: the smoke probes on the card, ``show``, and the API's
+    resolution against their records."""
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+    from consensus_clustering_tpu_torch.autotune.store import CalibrationStore
+
+    cal = os.path.join(tmp, "calibration")
+    code, out, err, wall = _cli(["autotune", "run", "--shapes", "smoke",
+                                 "--store", cal, "--budget", "120"], 600)
+    try:
+        summary = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        summary = {}
+    records = CalibrationStore(cal).records()
+    name = torch.cuda.get_device_name(0)
+    ours = [r for _, r in records if r.get("env", {}).get("device_kind")
+            == name]
+    step = report["steps"]["autotune_run"] = {
+        "wall_seconds": wall, "exit": code,
+        "gate_failed": summary.get("gate_failed"),
+        "records": {r["knob"] + "@" + r["bucket"]: {
+            "value": r["value"], "rate": r.get("rate"),
+            "speedup": r.get("speedup")} for r in ours},
+        "measurements": {p["probe"]: p["measurements"]
+                         for p in summary.get("probes", [])}}
+    check(code == 0 and summary.get("gate_failed") is False and ours,
+          f"cli autotune run: exit {code}, {step}: {_tail(err)}")
+    step["env"] = summary.get("env")
+    check(all(isinstance(r["env"].get("driver_version"), int) for r in ours),
+          f"cli autotune run: a record without the driver's version: "
+          f"{summary.get('env')}")
+    code, out, err, wall = _cli(["autotune", "show", "--store", cal,
+                                 "--this-env-only"], 120)
+    shown = json.loads(out) if code == 0 else {"records": []}
+    report["steps"]["autotune_show"] = {
+        "wall_seconds": wall, "records": len(shown["records"])}
+    check(code == 0 and len(shown["records"]) == len(ours),
+          f"cli autotune show: exit {code}, {len(shown['records'])} "
+          f"records of {len(ours)}: {_tail(err)}")
+    by_knob = {r["knob"]: r for r in ours}
+    fits = {}
+    for knob, (n, d, h, k_hi) in (("stream_h_block", (200, 8, 48, 4)),
+                                  ("max_iter", (300, 10, 24, 6))):
+        record = by_knob.get(knob)
+        if record is None:
+            check(False, f"cli autotune: no {knob} record")
+            continue
+        kwargs = dict(K_range=range(2, k_hi + 1), n_iterations=h,
+                      random_state=23, store_matrices=False)
+        # The probes' data (autotune.probes._blobs).
+        x = make_blobs(n_samples=n, n_features=d, centers=8,
+                       cluster_std=3.0, random_state=0)[0].astype(np.float32)
+        tuned = ConsensusClustering(**kwargs, autotune=True,
+                                    calibration_dir=cal).fit(x)
+        pin = ({"stream_h_block": record["value"]} if knob ==
+               "stream_h_block" else {"clusterer_options": {
+                   "n_init": 3, "max_iter": record["value"]}})
+        pinned = ConsensusClustering(**kwargs, **pin).fit(x)
+        disclosed = tuned.metrics_["autotune"][knob]
+        # A calibrated block is adopted only where its record measured
+        # streaming faster than the monolithic sweep (the reference's
+        # rule); a declined one leaves the monolithic sweep, whose full-H
+        # PAC equals every block size's.
+        adopted = knob != "stream_h_block" or (
+            record.get("speedup") or 0) > 1.0
+        same = [tuned.cdf_at_K_data[k]["pac_area"]
+                == pinned.cdf_at_K_data[k]["pac_area"]
+                for k in range(2, k_hi + 1)]
+        fits[knob] = {"record_value": record["value"],
+                      "record_speedup": record.get("speedup"),
+                      "disclosed": disclosed, "pac_equal_pinned": same}
+        check(disclosed["provenance"] == ("calibrated" if adopted
+                                          else "default"),
+              f"cli autotune: {knob} disclosed {disclosed}")
+        check(all(same), f"cli autotune: {knob} PAC != the pinned fit")
+    report["steps"]["autotune_api"] = fits
+    return cal
+
+
+
+
+def _cli_serve_steps(tmp, cal, run_result, report):
+    """Step 3: ``serve`` in a process of its own answering step 1's job
+    (and from the store the second time), ``serve-admin`` on its store
+    and events, then SIGINT."""
+    import signal
+
+    store, events = os.path.join(tmp, "store"), os.path.join(tmp, "ev.jsonl")
+    port_file = os.path.join(tmp, "port")
+    log_path = os.path.join(tmp, "serve.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        # A file, not a pipe: the service logs every job, and a pipe
+        # nobody reads would fill and stall it.
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "consensus_clustering_tpu_torch", "serve",
+             "--port", "0", "--port-file", port_file, "--store-dir", store,
+             "--events-path", events, "--calibration-dir", cal],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    step = report["steps"]["serve"] = {}
+    try:
+        deadline = time.time() + 180
+        while not os.path.exists(port_file) and proc.poll() is None \
+                and time.time() < deadline:
+            time.sleep(0.2)
+        if not os.path.exists(port_file):
+            check(False, f"cli serve: no port file (exit {proc.poll()})")
+            return
+        step["start_seconds"] = time.perf_counter() - t0
+        with open(port_file) as f:
+            base = f"http://127.0.0.1:{f.read().strip()}"
+        config = {"k": list(range(2, CLI["k_hi"] + 1)),
+                  "iterations": CLI["h"], "stream_h_block": CLI["block"],
+                  "accum_repr": "packed", "clusterer_options": {"n_init": 3}}
+        body = {"data": _cli_data().tolist(),
+                "config": {**config, "seed": 23}}
+        second = {"data": body["data"], "config": {
+            **config, "seed": 24, "iterations": 5 * CLI["h"]}}
+        code_a, rec_a, post_a = _http(base, "/jobs", body)
+        code_b, rec_b, post_b = _http(base, "/jobs", second)
+        # B (H=500) runs behind A, its payload on disk until it is done:
+        # show prices it (a finished job's payload is gone).
+        code, out, err, wall = _cli(["serve-admin", "--store-dir", store,
+                                     "show", rec_b["job_id"]], 120)
+        shown = json.loads(out) if code == 0 else {}
+        step["admin_show"] = {"wall_seconds": wall,
+                              "status_at_show": shown.get("status"),
+                              "footprints": shown.get("footprints")}
+        check(code == 0 and "footprints" in shown,
+              f"cli serve-admin show: exit {code}, "
+              f"status {shown.get('status')}: {_tail(err)}")
+        done_a = _await_job(base, rec_a["job_id"])
+        done_b = _await_job(base, rec_b["job_id"])
+        code_a2, rec_a2, post_a2 = _http(base, "/jobs", body)
+        _, metrics, _ = _http(base, "/metrics")
+        res_a = done_a.get("result") or {}
+        ks = [str(k) for k in range(2, CLI["k_hi"] + 1)]
+        same = [res_a.get("pac_area", {}).get(k)
+                == (run_result or {}).get("pac_area", {}).get(k) for k in ks]
+        step.update({
+            "http": [code_a, code_b, code_a2],
+            "A": {"status": done_a["status"], **_split(post_a, done_a),
+                  "pac_equal_cli_run_per_k": same,
+                  "autotune": res_a.get("autotune")},
+            "B": {"status": done_b["status"], **_split(post_b, done_b)},
+            "A_again": {"post_seconds": post_a2,
+                        "from_cache": rec_a2.get("from_cache")},
+            "sweeps_executed": metrics.get("sweeps_executed")})
+        check(done_a["status"] == "done" and done_b["status"] == "done",
+              f"cli serve: {done_a.get('error')} {done_b.get('error')}")
+        check(all(same), "cli serve: A's PAC differs from the CLI run at "
+                         f"K={[k for k, e in zip(ks, same) if not e]}")
+        check(code_a2 == 200 and rec_a2.get("from_cache") is True
+              and metrics.get("sweeps_executed") == 2,
+              f"cli serve: A again not from the store ({code_a2}, "
+              f"{metrics.get('sweeps_executed')} runs)")
+        bundle = os.path.join(tmp, "bundle.tar.gz")
+        started = {name: _cli_start(["serve-admin", "--store-dir", store,
+                                     *args]) for name, args in (
+            ("list", ["list"]),
+            ("trace", ["trace", rec_a["job_id"], "--events", events]),
+            ("report", ["report", "--events", events]),
+            ("bundle", ["bundle", rec_a["job_id"], "--events", events,
+                        "--out", bundle]))}
+        admin = {}
+        for name, admin_proc in started.items():
+            code, out, err, wall = _cli_finish(admin_proc, 120)
+            admin[name] = {"exit": code, "wall_seconds": wall}
+            check(code == 0, f"cli serve-admin {name}: exit {code}: "
+                             f"{_tail(err)}")
+        step["admin_in_parallel"] = admin
+        import tarfile
+
+        record = None
+        if os.path.exists(bundle):
+            with tarfile.open(bundle) as tar:
+                member = f"{rec_a['job_id']}/record.json"
+                if member in tar.getnames():
+                    record = json.load(tar.extractfile(member))
+        check(record is not None and record.get("job_id") == rec_a["job_id"]
+              and record.get("status") == "done",
+              "cli serve-admin bundle: no job record in the bundle")
+    finally:
+        t1 = time.perf_counter()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        step["stop_seconds"] = time.perf_counter() - t1
+        step["exit"] = proc.returncode
+        with open(log_path) as f:
+            step["log_tail"] = _tail(f.read(), 600)
+        check(proc.returncode == 0 and step["stop_seconds"] <= 10,
+              f"cli serve: SIGINT gave exit {proc.returncode} after "
+              f"{step['stop_seconds']:.1f} s")
+
+
+def phase_cli(torch, results):
+    """The command line, each subcommand in a process of its own: the
+    headline-width streamed ``run`` (PAC equal to the library's fit bit
+    for bit, every kernel launched) and the dense corr ``run`` (golden
+    bands, B1); ``autotune run --shapes smoke`` and ``show``, with the
+    API resolving its records; ``serve`` answering the run's job (equal,
+    then from the store) with ``serve-admin`` on its files and SIGINT to
+    stop it; ``bench`` and ``lint`` refused."""
+    report = {"phase": "cli", "nvidia_smi": smi_line(), "steps": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_result = _cli_run_steps(torch, results, tmp, report)
+        cal = _cli_autotune_steps(torch, tmp, report)
+        _cli_serve_steps(tmp, cal, run_result, report)
+    refused = {name: _cli_start([name]) for name in ("bench", "lint")}
+    for name, item in (("bench", "A18"), ("lint", "A15")):
+        code, _, err, wall = _cli_finish(refused[name], 120)
+        report["steps"][name] = {"exit": code, "wall_seconds": wall}
+        check(code != 0 and f"item {item}" in err,
+              f"cli {name}: exit {code}, not refused by {item}: {_tail(err)}")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit(report)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES))
@@ -2616,6 +2982,8 @@ def main(argv=None):
         phase_append(torch, results)
     if "serve" in phases:
         phase_serve(torch, results)
+    if "cli" in phases:
+        phase_cli(torch, results)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)

@@ -15,7 +15,9 @@ and the final assignment, alone and fused with packing
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  The
-package imports neither ``jax`` nor ``consensus_clustering_tpu``.
+command line is ``python -m consensus_clustering_tpu_torch run | serve |
+serve-admin | autotune`` (:mod:`.cli`).  The package imports neither
+``jax`` nor ``consensus_clustering_tpu``.
 
 Importing the package pins full-f32 matrix products: every distance GEMM of
 the reference runs at ``Precision.HIGHEST``, and TF32 keeps ten mantissa bits.

@@ -20,7 +20,10 @@ paths, with every keyword of the reference constructor (the port adds
   events, ``profile_dir`` a ``torch.profiler`` trace of the sweep;
 - ``compute_consensus_labels`` and :meth:`ConsensusClustering.fit_predict`
   give consensus labels from Cij (:func:`~.models.agglomerative.
-  consensus_labels_from_cij`).
+  consensus_labels_from_cij`);
+- ``autotune=True`` fills the unset performance knobs from the
+  calibration store's parity-gated records (:mod:`.autotune`), and
+  ``metrics_["autotune"]`` discloses each knob's provenance.
 
 The result schema is the reference's: ``cdf_at_K_data`` (``consensus_labels,
 hist, cdf, bin_edges, pac_area, mij, iij, cij`` per K, and with consensus
@@ -44,9 +47,8 @@ device's memory).
 
 Features of the reference package that this package does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them:
-``autotune`` and ``calibration_dir`` (A12), ``mesh`` and ``k_interleave``
-(A13), and plotting (A15).  Unlike the reference, ``plot_cdf`` defaults to
-False.
+``mesh`` and ``k_interleave`` (A13), and plotting (A15).  Unlike the
+reference, ``plot_cdf`` defaults to False.
 """
 
 from __future__ import annotations
@@ -172,6 +174,8 @@ class ConsensusClustering:
     parity_zeros, bins, chunk_size, cluster_batch, split_init,
     reseed_clusterer_per_resample, delta_k_threshold : keyword-only,
         as the reference (see :class:`~.config.SweepConfig`).
+        ``split_init`` None means unset: False unless ``autotune``
+        resolves a calibrated verdict.
     compute_dtype : keyword-only
         "float32", or "float64" on the CPU (the parity path).
     integrity_check_every : int, keyword-only
@@ -196,7 +200,24 @@ class ConsensusClustering:
     exact_best_k : bool, keyword-only
         With the estimator: recompute the chosen K's curves exactly over
         the resamples the estimate ran (``metrics_['exact_best_k']``).
-    mesh, k_interleave, autotune, calibration_dir : keyword-only
+    autotune : bool, keyword-only
+        Fill UNSET performance knobs (``cluster_batch``, ``split_init``,
+        ``stream_h_block``, and the default KMeans clusterer's
+        ``max_iter``) from the calibration store's parity-gated records
+        for this environment × shape bucket.  Only bit-identical-gated
+        knobs are filled — the statistic cannot move — and never a knob
+        you set yourself (user pins outrank calibration).  A calibrated
+        ``stream_h_block`` is adopted only where its record measured
+        streaming faster than the monolithic sweep.
+        ``metrics_["autotune"]`` discloses every resolution with its
+        provenance tier (``user-pinned`` > ``calibrated`` > ``default``).
+        A no-op (logged) for host-backend clusterers, whose labelling
+        loop none of these knobs steer.
+    calibration_dir : str, keyword-only, optional
+        Calibration store for ``autotune=True`` (default:
+        ``CCTPU_CALIBRATION_DIR``; without either, every knob resolves
+        to its user-pinned or default tier).
+    mesh, k_interleave : keyword-only
         Accepted at their defaults; other values raise
         ``NotImplementedError`` naming the ROADMAP item.
     """
@@ -275,10 +296,6 @@ class ConsensusClustering:
                 raise ValueError(
                     "n_pairs only applies with mode='estimate' or 'auto'"
                 )
-        if autotune:
-            raise not_ported("autotune", "A12")
-        if calibration_dir is not None:
-            raise not_ported("calibration_dir (autotune)", "A12")
         if use_pallas is False:
             raise ValueError(
                 "use_pallas=False would run the kernels' plain versions on "
@@ -346,9 +363,16 @@ class ConsensusClustering:
         self.adaptive_patience = adaptive_patience
         self.adaptive_min_h = adaptive_min_h
         self.integrity_check_every = integrity_check_every
+        self.autotune = bool(autotune)
+        self.calibration_dir = calibration_dir
         self.mode = mode
         self.n_pairs = n_pairs
         self.exact_best_k = bool(exact_best_k)
+        # Calibrated clusterer options (the default KMeans' max_iter):
+        # set by the fit-time resolution, merged by _effective_options
+        # without outranking anything explicit.
+        self._autotune_options: Dict[str, Any] = {}
+        self.autotune_ = None
 
     # -- clusterer resolution -------------------------------------------
 
@@ -391,6 +415,8 @@ class ConsensusClustering:
                 accepts = False
             if not accepts:
                 options.pop("n_init")
+        for name, value in self._autotune_options.items():
+            options.setdefault(name, value)
         return options
 
     # -- fit -------------------------------------------------------------
@@ -440,8 +466,12 @@ class ConsensusClustering:
             )
         device = resolve_device(self.device)
         mode, sizing = self._resolve_mode(n, d, device)
+        self._autotune_options = {}
+        self.autotune_ = None
         if mode == "estimate":
             return self._fit_estimate(X, n, d, device, sizing)
+        cluster_batch, split_init, stream_h_block = self._resolve_autotune(
+            n, d, device)
         config = SweepConfig(
             n_samples=n,
             n_features=d,
@@ -453,10 +483,10 @@ class ConsensusClustering:
             parity_zeros=self.parity_zeros,
             store_matrices=self._resolve_store_matrices(n),
             chunk_size=self.chunk_size,
-            cluster_batch=self.cluster_batch,
-            split_init=bool(self.split_init),
+            cluster_batch=cluster_batch,
+            split_init=bool(split_init),
             reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
-            stream_h_block=self.stream_h_block,
+            stream_h_block=stream_h_block,
             adaptive_tol=self.adaptive_tol,
             adaptive_patience=self.adaptive_patience,
             adaptive_min_h=self.adaptive_min_h,
@@ -520,6 +550,8 @@ class ConsensusClustering:
             self.metrics_["streaming"] = streaming_infos[-1]
             if len(streaming_infos) > 1:
                 self.metrics_["streaming_batches"] = streaming_infos
+        if self.autotune_ is not None:
+            self.metrics_["autotune"] = self.autotune_
         metrics_logger.emit("sweep_complete", **{
             **self.metrics_,
             "n_samples": n,
@@ -532,6 +564,86 @@ class ConsensusClustering:
         })
         return self
 
+    # -- autotune --------------------------------------------------------
+
+    def _is_host_clusterer(self) -> bool:
+        c = self.clusterer
+        return isinstance(c, HostClusterer) or (
+            c is not None and hasattr(c, "fit_predict")
+            and hasattr(c, "get_params")
+        )
+
+    def _resolve_autotune(self, n: int, d: int, device):
+        """``(cluster_batch, split_init, stream_h_block)`` for this fit:
+        the constructor's values, with those left unset filled from the
+        calibration store under ``autotune=True`` (user pin > calibrated
+        > default), each disclosed in ``autotune_``; the default
+        clusterer's calibrated ``max_iter`` goes into
+        ``_autotune_options``.  Only bit-identical-gated knobs are
+        filled, never ``adaptive_tol``, which trades resamples for
+        bounded PAC drift."""
+        pinned = (self.cluster_batch, self.split_init, self.stream_h_block)
+        if not self.autotune:
+            return pinned
+        if self._is_host_clusterer():
+            # Disclosing "calibrated" values that steered nothing would
+            # be worse than silence.
+            logger.info(
+                "autotune: host-backend clusterer — the resolvable knobs "
+                "(cluster_batch/split_init/stream_h_block/max_iter) are "
+                "device-path features; nothing to resolve"
+            )
+            return pinned
+        from consensus_clustering_tpu_torch.autotune.policy import (
+            AutotunePolicy,
+            Resolution,
+            default_calibration_dir,
+        )
+        from consensus_clustering_tpu_torch.autotune.store import (
+            CalibrationStore,
+            environment,
+            shape_bucket,
+        )
+
+        directory = self.calibration_dir or default_calibration_dir()
+        policy = AutotunePolicy(
+            None if directory is None
+            else CalibrationStore(directory, env=environment(device)))
+        bucket = shape_bucket(n, d, self.n_iterations, tuple(self.K_range))
+        r_stream = policy.resolve("stream_h_block", bucket,
+                                  pinned=self.stream_h_block)
+        if (r_stream.provenance == "calibrated"
+                and not (r_stream.record.get("speedup") or 0) > 1.0):
+            # The record answers "which block size GIVEN streaming"
+            # (serving always streams), but this surface's unset default
+            # is the monolithic sweep, and the record's own evidence says
+            # streaming lost to it at this bucket.
+            logger.info(
+                "autotune: calibrated stream_h_block=%s not adopted "
+                "(streamed at %.2fx the monolithic rate at this bucket); "
+                "keeping the monolithic default",
+                r_stream.record.get("value"),
+                r_stream.record.get("speedup") or 0.0,
+            )
+            r_stream = Resolution("stream_h_block", None, "default")
+        resolutions = [
+            policy.resolve("cluster_batch", bucket,
+                           pinned=self.cluster_batch),
+            policy.resolve("split_init", bucket, pinned=self.split_init,
+                           default=False),
+            r_stream,
+        ]
+        if self.clusterer is None and (
+                "max_iter" not in self.clusterer_options):
+            # Only the default clusterer's max_iter is provably unset: an
+            # explicit clusterer instance is a pin, whatever its fields.
+            r = policy.resolve("max_iter", bucket)
+            if r.value is not None:
+                self._autotune_options = {"max_iter": int(r.value)}
+            resolutions.append(r)
+        self.autotune_ = {r.knob: r.disclosure() for r in resolutions}
+        return tuple(r.value for r in resolutions[:3])
+
     # -- the estimator ---------------------------------------------------
 
     def _estimate_infeasible_reason(self) -> Optional[str]:
@@ -542,11 +654,7 @@ class ConsensusClustering:
             return "store_matrices=True (the estimator never builds them)"
         if self.compute_consensus_labels:
             return "compute_consensus_labels needs the matrices"
-        c = self.clusterer
-        if isinstance(c, HostClusterer) or (
-            c is not None and hasattr(c, "fit_predict")
-            and hasattr(c, "get_params")
-        ):
+        if self._is_host_clusterer():
             return "host-backend clusterer (no device block to stream)"
         return None
 

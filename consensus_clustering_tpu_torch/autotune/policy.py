@@ -1,7 +1,7 @@
 # Ported from consensus_clustering_tpu/autotune/policy.py.
 """Knob resolution with explicit provenance: user pin > calibrated > default.
 
-The one place ``serve/executor.py`` turns an
+The one place ``api.py`` and ``serve/executor.py`` turn an
 *unset* performance knob into a concrete value.  Three tiers, strictly
 ordered:
 

@@ -1,22 +1,31 @@
 # Ported from consensus_clustering_tpu/autotune/store.py.
-"""Calibration store, the read side: schema-versioned, parity-gated
-performance records that the autotune policy and the scheduler read.
+"""Calibration store: schema-versioned, parity-gated performance records.
 
-Every measured knob recommendation (``stream_h_block`` for the serve
-path) lives in one JSON record keyed by **environment fingerprint ×
-shape bucket × knob**.  The environment fingerprint (the GPU's name, the
-CUDA driver, the torch and CUDA versions, the device count) mirrors
+Every measured knob recommendation (``max_iter`` cap, ``cluster_batch``,
+``split_init``, ``stream_h_block``, ``adaptive_tol``) lives here as one
+JSON record keyed by **environment fingerprint × shape bucket × knob**.
+The environment fingerprint (the GPU's name, the CUDA driver, the torch
+and CUDA versions, the device count) mirrors
 ``utils/checkpoint.stream_fingerprint``'s refuse-foreign-state rule: a
 number tuned on one stack must never silently steer another —
 :meth:`CalibrationStore.get` only ever resolves records whose embedded
 fingerprint matches the *current* environment, and raises
 :class:`ForeignFingerprintError` on a record whose content disagrees
-with where it sits (a copied/renamed file).  A record carries
-``schema_version``; a version the reader does not understand is a loud
-:class:`SchemaVersionError`, never a silently misparsed knob.
+with where it sits (a copied/renamed file).  The file format is the
+reference package's, but its environment has other fields, so a record
+of one package is foreign to the other in both directions.
 
-The write side (the probes, ``make_record`` and ``save``) is not ported
-yet (ROADMAP A12), so a store holds only records written elsewhere.
+Records are written atomically (tmp + ``os.replace``, the jobstore /
+checkpoint convention) and carry ``schema_version``; a version the
+reader does not understand is a loud :class:`SchemaVersionError`, never
+a silently misparsed knob.
+
+The parity gate is structural: :meth:`CalibrationStore.save` refuses any
+record whose ``parity`` section is missing or whose gate did not pass —
+Monti et al. (2003) consensus matrices and the Şenbabaoğlu et al. (2014)
+PAC criterion are the correctness bar, so an un-gated timing can never
+become a recommendation (the probes in :mod:`.probes` construct records
+through :func:`make_record`, which enforces the same rule earlier).
 """
 
 from __future__ import annotations
@@ -24,9 +33,19 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 SCHEMA_VERSION = 1
+
+# Knobs the subsystem understands; save() rejects anything else so a
+# probe typo cannot mint a record no resolver will ever read.
+KNOWN_KNOBS = (
+    "max_iter",
+    "cluster_batch",
+    "split_init",
+    "stream_h_block",
+    "adaptive_tol",
+)
 
 
 class CalibrationError(ValueError):
@@ -42,10 +61,12 @@ class ForeignFingerprintError(CalibrationError):
     the store resolving it."""
 
 
-def environment() -> Dict[str, Any]:
-    """The identity of the stack a measurement is valid for: the GPU's
-    name, the CUDA driver, the torch and CUDA versions and the device
-    count (``device_kind`` ``cpu``, no driver, on a machine without one).
+def environment(device=None) -> Dict[str, Any]:
+    """The identity of the stack a measurement on ``device`` is valid
+    for: the GPU's name, the CUDA driver, the torch and CUDA versions and
+    the device count.  ``device`` None means ``cuda`` where a GPU is
+    visible; a CPU device (or no GPU) gives ``device_kind`` ``cpu``, no
+    driver and one device.
 
     ``device_count`` rides along because several knobs are per-device
     quantities (``cluster_batch`` applies to each device's LOCAL
@@ -54,16 +75,29 @@ def environment() -> Dict[str, Any]:
     """
     import torch
 
-    on_cuda = torch.cuda.is_available()
-    driver = getattr(torch._C, "_cuda_getDriverVersion", None)
+    dev = None if device is None else torch.device(device)
+    on_cuda = torch.cuda.is_available() if dev is None else dev.type == "cuda"
     return {
-        "device_kind": torch.cuda.get_device_name(0) if on_cuda else "cpu",
+        "device_kind": torch.cuda.get_device_name(dev) if on_cuda else "cpu",
         "backend": "torch-cuda" if on_cuda else "torch-cpu",
-        "driver_version": driver() if on_cuda and driver else None,
+        "driver_version": _driver_version() if on_cuda else None,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "device_count": torch.cuda.device_count() if on_cuda else 1,
     }
+
+
+def _driver_version() -> int:
+    """The CUDA driver's version (``cuDriverGetVersion``, e.g. 12080):
+    torch reports the toolkit it was built with, not the driver."""
+    import ctypes
+
+    version = ctypes.c_int()
+    status = ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(
+        ctypes.byref(version))
+    if status != 0:
+        raise CalibrationError(f"cuDriverGetVersion failed ({status})")
+    return version.value
 
 
 def env_fingerprint(env: Optional[Dict[str, Any]] = None) -> str:
@@ -84,6 +118,63 @@ def shape_bucket(
     """
     ks = sorted(int(k) for k in k_values)
     return f"n{int(n)}_d{int(d)}_h{int(h)}_k{ks[0]}-{ks[-1]}"
+
+
+def make_record(
+    knob: str,
+    bucket: str,
+    value: Any,
+    *,
+    parity: Dict[str, Any],
+    rate: Optional[float] = None,
+    baseline_value: Any = None,
+    baseline_rate: Optional[float] = None,
+    probe: Optional[str] = None,
+    env: Optional[Dict[str, Any]] = None,
+    evidence: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Assemble a schema-current record; raises unless the parity gate
+    passed (the probes' single choke point for the never-ungated rule).
+    """
+    if knob not in KNOWN_KNOBS:
+        raise CalibrationError(
+            f"unknown knob {knob!r} (known: {KNOWN_KNOBS})"
+        )
+    if not isinstance(parity, dict) or "max_pac_delta" not in parity:
+        raise CalibrationError(
+            "parity section missing/malformed: a record must state the "
+            "PAC comparison that gated it"
+        )
+    if not parity.get("passed"):
+        raise CalibrationError(
+            f"parity gate did not pass for {knob}@{bucket} "
+            f"(max_pac_delta={parity.get('max_pac_delta')!r} vs "
+            f"tolerance={parity.get('tolerance')!r}); refusing to mint "
+            "a recommendation from it"
+        )
+    env = environment() if env is None else env
+    record: Dict[str, Any] = {
+        "schema_version": SCHEMA_VERSION,
+        "knob": knob,
+        "bucket": bucket,
+        "env": dict(env),
+        "env_fingerprint": env_fingerprint(env),
+        "value": value,
+        "parity": dict(parity),
+    }
+    if rate is not None:
+        record["rate"] = round(float(rate), 2)
+    if baseline_value is not None:
+        record["baseline_value"] = baseline_value
+    if baseline_rate is not None:
+        record["baseline_rate"] = round(float(baseline_rate), 2)
+        if rate:
+            record["speedup"] = round(float(rate) / float(baseline_rate), 3)
+    if probe is not None:
+        record["probe"] = probe
+    if evidence:
+        record["evidence"] = evidence
+    return record
 
 
 def load_record(
@@ -127,7 +218,9 @@ class CalibrationStore:
     (environment, knob, bucket).
 
     ``env`` defaults to the live :func:`environment`; tests inject a
-    synthetic one.  A directory that does not exist holds no records.
+    synthetic one, and the probes that of the device they measure on.
+    The directory is created lazily on first save, and one that does not
+    exist holds no records.
     """
 
     def __init__(
@@ -141,6 +234,41 @@ class CalibrationStore:
         return os.path.join(
             self.directory, f"{env_fp}__{knob}__{bucket}.json"
         )
+
+    def save(self, record: Dict[str, Any]) -> str:
+        """Atomically persist a record; returns its path.
+
+        Validation is the same gate :func:`make_record` applies — a
+        hand-built dict does not get to skip it.
+        """
+        for field in ("knob", "bucket", "env_fingerprint", "parity"):
+            if field not in record:
+                raise CalibrationError(
+                    f"record missing required field {field!r}"
+                )
+        if record.get("schema_version") != SCHEMA_VERSION:
+            raise SchemaVersionError(
+                f"refusing to write schema_version="
+                f"{record.get('schema_version')!r} (current: "
+                f"{SCHEMA_VERSION})"
+            )
+        if record["knob"] not in KNOWN_KNOBS:
+            raise CalibrationError(f"unknown knob {record['knob']!r}")
+        if not record["parity"].get("passed"):
+            raise CalibrationError(
+                "refusing to store a record whose parity gate did not "
+                "pass"
+            )
+        os.makedirs(self.directory, exist_ok=True)
+        path = self._path(
+            record["knob"], record["bucket"], record["env_fingerprint"]
+        )
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(record, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)  # atomic: no torn records
+        return path
 
     def get(
         self, knob: str, bucket: str
@@ -168,3 +296,27 @@ class CalibrationStore:
                 "a mislabelled record"
             )
         return record
+
+    def records(
+        self, all_envs: bool = True
+    ) -> List[Tuple[str, Dict[str, Any]]]:
+        """Every readable record as (path, record) — the ``show``/
+        ``diff`` surface.  Unreadable/foreign-schema files are returned
+        as (path, {"error": ...}) entries so an operator listing never
+        hides a broken record."""
+        out: List[Tuple[str, Dict[str, Any]]] = []
+        if not os.path.isdir(self.directory):
+            return out
+        for name in sorted(os.listdir(self.directory)):
+            if not name.endswith(".json") or name.endswith(".tmp"):
+                continue
+            path = os.path.join(self.directory, name)
+            try:
+                record = load_record(path)
+            except CalibrationError as e:
+                out.append((path, {"error": str(e)}))
+                continue
+            if not all_envs and record.get("env_fingerprint") != self.env_fp:
+                continue
+            out.append((path, record))
+        return out

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled for ``sm_90a`` and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  Libraries land in the package's ``_build/`` directory
-under a name keyed by a hash of the sources, so an edited source is rebuilt
-and a stale library is never loaded.  A missing ``nvcc`` or a failed build
-raises; nothing falls back.
+build takes seconds).  Libraries land in :data:`BUILD_DIR` (the package's
+git-ignored ``_build/``, unless an entry point chose another directory with
+:func:`..utils.platform.enable_compilation_cache`) under a name keyed by a
+hash of the sources, so an edited source is rebuilt and a stale library is
+never loaded.  A missing ``nvcc`` or a failed build raises; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Dict, Iterable, Iterator, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -15,11 +15,14 @@ store (the port of the reference package's ``serve/``).
 - :mod:`.events`    — structured JSONL lifecycle events
 - :mod:`.watchdog`  — liveness heartbeats and the wedge verdict
 - :mod:`.preflight` — admission-time memory estimate vs the budget
+- :mod:`.admin`     — ``serve-admin``: quarantine list/show/release,
+  profile-next and the forensic queries (:mod:`..obs.query`), on the
+  store's files alone
 
 ``ConsensusService(store_dir, executor=SweepExecutor(device="cpu"))``
 serves from the CPU; with no executor it builds one on the card and
-raises without a GPU.  The ``serve-admin`` tool and ``obs/query.py`` are
-ROADMAP A14.
+raises without a GPU.  ``python -m consensus_clustering_tpu_torch serve``
+starts it from the command line.
 
 Lazy exports (PEP 562, the reference's pattern): importing the package
 pulls in neither the executor nor torch's CUDA state.

@@ -76,8 +76,8 @@ def test_every_reference_keyword_is_a_port_keyword():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(k_interleave=True), "A13"),
-    (dict(calibration_dir="calibration"), "A12"),
-    (dict(autotune=True), "A12"),
+    (dict(mesh=object()), "A13"),
+    (dict(plot_cdf=True), "A15"),
     (dict(mode="estimate", n_pairs=64, mesh=object()), "A13"),
 ])
 def test_unported_keywords_name_their_item(kwargs, item):

@@ -7,11 +7,12 @@
 - The subprocess also drives every clusterer (GMM, agglomerative,
   spectral, an sklearn estimator on the host backend), ``k_batch_size``,
   consensus labels and ``fit_predict``, the estimator (``mode="estimate"``
-  and ``"auto"``, ``exact_best_k``), an append on a plane store and a
-  ``ConsensusService`` answering one job over HTTP; the ``ast`` scan
-  covers every subpackage (``estimator/``, ``append/``, ``serve/``,
-  ``serve/sched/``, ``serve/fleet/``, ``obs/`` and ``autotune/``
-  included).
+  and ``"auto"``, ``exact_best_k``), an append on a plane store, a
+  ``ConsensusService`` answering one job over HTTP, the command line
+  (``run``, ``autotune run``, ``serve-admin``) and ``autotune=True``; the
+  ``ast`` scan covers every subpackage (``estimator/``, ``append/``,
+  ``serve/``, ``serve/sched/``, ``serve/fleet/``, ``obs/``,
+  ``autotune/`` and ``utils/`` included) and the command line's modules.
 - The kernel modules import on the CPU, their wrappers take the plain
   versions there, and the build raises a clear error without ``nvcc``.
 """
@@ -69,7 +70,11 @@ def test_no_module_imports_jax_or_the_reference_package():
     scanned = {os.path.relpath(os.path.dirname(p), PKG)
                for p in _port_sources()}
     assert {"estimator", "append", "serve", "ops", "parallel", "obs",
-            "serve/sched", "serve/fleet", "autotune"} <= scanned
+            "serve/sched", "serve/fleet", "autotune", "utils"} <= scanned
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"cli.py", "__main__.py", "serve/admin.py", "obs/query.py",
+            "autotune/probes.py", "autotune/cli.py", "ops/probe.py",
+            "utils/platform.py"} <= files
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -149,6 +154,29 @@ with tempfile.TemporaryDirectory() as tmp:
         assert rec["result"]["backend"] == "torch-cpu"
     finally:
         svc.stop()
+    import contextlib, io
+    from consensus_clustering_tpu_torch.cli import main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        # blobs: scipy's Yeo-Johnson (corr.csv) trips on the poisoned jax.
+        main(["run", "--dataset", "blobs", "--n-samples", "60",
+              "--n-features", "3", "--k", "2:3", "--iterations", "4",
+              "--device", "cpu"])
+        try:
+            # --budget 0: every probe budget-skipped, the modules loaded.
+            main(["autotune", "run", "--shapes", "smoke", "--budget", "0",
+                  "--device", "cpu", "--store", os.path.join(tmp, "cal")])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        try:
+            main(["serve-admin", "--store-dir", tmp, "list"])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    auto = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                               device="cpu", autotune=True,
+                               calibration_dir=os.path.join(tmp, "cal")).fit(x)
+    assert set(auto.metrics_["autotune"]) == {
+        "cluster_batch", "split_init", "stream_h_block", "max_iter"}
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -182,10 +210,8 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(calibration_dir="calibration"),
-     dict(mode="estimate", mesh=object()),
-     dict(k_interleave=True), dict(autotune=True),
-     dict(plot_cdf=True)],
+    [dict(mesh=object()), dict(mode="estimate", mesh=object()),
+     dict(k_interleave=True), dict(plot_cdf=True)],
 )
 def test_unported_features_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -48,6 +48,7 @@ VERBATIM = (
     "serve/sched/stream.py", "serve/fleet/__init__.py",
     "serve/fleet/heartbeat.py", "serve/fleet/signal.py",
     "serve/fleet/steal.py", "serve/jobstore.py", "serve/service.py",
+    "obs/query.py",
 )
 
 
