@@ -159,7 +159,27 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   record inside), then SIGINT (exit 0 within 10 s);
                   ``bench`` and ``lint`` refused naming A18 and A15.
                   Prints each step's wall time (for ``run``, the wall
-                  minus ``run_seconds``: process start and kernel load).
+                  minus ``run_seconds``: process start and kernel load);
+17. mesh        — multi-device sweeps on virtual meshes (the card
+                  repeated): the dense headline on (k=2, h=2, n=2) with
+                  ``k_interleave`` and the packed fused stream (blocks of
+                  100) on (h=2, n=2), each through the API with the
+                  counts set to 0 just before, per-K PAC equal to
+                  ``PINNED_PAC`` and launches equal to their pins; the
+                  estimator at N=100,000 (H cut to 20) on (h=2, n=2), its
+                  curves and pair counts equal to its one-device run; H=17
+                  over two 'h' shards with ``cluster_batch=8`` (a Lloyd
+                  group of one lane), Mij equal to one device's; two gloo
+                  processes sharing the card, the dense sweep at the
+                  headline's width (H cut to 100) with 'h' across them,
+                  equal to one process.  The ``kernels`` phase adds B1's
+                  mesh row blocks (N=5000 over 3 and 2 row shards, N=29
+                  over 8).  Copies between cards and NCCL are not
+                  exercised: the machine has one card.
+
+``--phases env,mesh_cards`` (not in the default run) needs four cards: the
+mesh phase's dense and stream runs on distinct cards (the same pins) and
+four NCCL processes with a card each, equal to one process.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -186,7 +206,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
           "stream_small", "resilience_small", "corr", "clusterers",
-          "estimate", "estimate_check", "refine", "append", "serve", "cli")
+          "estimate", "estimate_check", "refine", "append", "serve", "cli",
+          "mesh")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -212,6 +233,14 @@ PINNED_LAUNCHES = {
                  "fused_block": 0, "assign": 608},
     "stream": {"hist": 1900, "lloyd": 18541, "popcount": 2000,
                "fused_block": 95, "assign": 665},
+    # The mesh phase's runs, pinned from its first run on the card (an
+    # NVIDIA H100 80GB HBM3 at 700 W): the shards' Lloyd groups differ
+    # from one device's, so B2, the assignment and B4 launch more often,
+    # B1 once a row block.
+    "mesh_dense": {"hist": 38, "lloyd": 17355, "popcount": 0,
+                   "fused_block": 0, "assign": 608},
+    "mesh_stream": {"hist": 1900, "lloyd": 21008, "popcount": 2000,
+                    "fused_block": 380, "assign": 760},
 }
 PINNED_PAC = [
     0.15632814168930054, 0.14219361543655396, 0.11298960447311401,
@@ -446,7 +475,20 @@ def kernels_hist(torch, results):
     pad = {kind: _cij_block(torch, n_pad2, 1, kind)
            for kind in ("uniform", "bimodal")}
     edge_cij = edge_values(torch, bins)
+    # A mesh's row blocks (the 'n' axis pads N to n_local * row_shards):
+    # N = 5000 over 3 row shards (n_local 1667, n_pad 5001, the last block
+    # at row 3334 holds the padding row 5000), corr.csv's N = 29 over 8
+    # (n_local 4, n_pad 32: one valid row in the last block, at 28), and
+    # the dense mesh phase's 2 shards (rows 2500-4999 at offset 2500).
+    mesh3 = _cij_block(torch, 5001, 2)
+    # count_tiles writes 40 fixed columns: cut the 32-wide block from 64.
+    mesh8 = tuple(t[:32, :32].contiguous() for t in _cij_block(torch, 64, 3))
     rows = [("full", counts["uniform"], slice(None), n, 0),
+            ("mesh row block 2 of 3", mesh3, slice(3334, 5001), n, 3334),
+            ("mesh row block 0 of 3", mesh3, slice(0, 1667), n, 0),
+            ("mesh corr row block 7 of 8", mesh8, slice(28, 32), 29, 28),
+            ("mesh row block 1 of 2", counts["uniform"], slice(2500, 5000),
+             n, 2500),
             ("ragged", counts["uniform"], slice(1234, 2011), 4990, 1234),
             ("stream tile 0", pad["uniform"], slice(0, tile_r), n, 0),
             ("stream tile 19", pad["uniform"], slice(n_pad2 - tile_r, None),
@@ -513,6 +555,14 @@ def kernels_hist(torch, results):
 
     tile = slice(0, tile_r)
     full = timed(*cij_entry(counts["uniform"][2]), 20)
+    # The dense mesh phase's row block: rows 2500-4999 of 5000 at offset
+    # 2500, the pairs i < j < N of those rows.
+    block_pairs = sum(n - 1 - i for i in range(2500, n))
+    half = counts["uniform"][2][2500:]
+    row_block = timed(
+        lambda: hist.consensus_hist_counts_kernel(half, n, 2500, bins),
+        lambda: hist.consensus_hist_counts_plain(half, n, 2500, bins), 20,
+        n_pairs=block_pairs)
     bimodal = timed(*cij_entry(counts["bimodal"][2]), 20)
     tile_u = timed(*cij_entry(pad["uniform"][2], tile), 50, n_pairs=t_pairs)
     tile_b = timed(*cij_entry(pad["bimodal"][2], tile), 50, n_pairs=t_pairs)
@@ -535,6 +585,7 @@ def kernels_hist(torch, results):
         "stream_tile_bimodal": dict(tile_b, shape=[tile_r, n_pad2]),
         "count_entry_tile": dict(cnt_u, shape=[tile_r, n_pad2]),
         "count_entry_tile_bimodal": dict(cnt_b, shape=[tile_r, n_pad2]),
+        "mesh_row_block": dict(row_block, shape=[2500, n], row_offset=2500),
     }
     emit({"phase": "kernels", "kernel": "hist", "timing": results["hist"],
           "library_note": "no single PyTorch call computes it: torch.histc "
@@ -871,8 +922,11 @@ def kernels_popcount(torch, results):
 def kernels_fused(torch, results):
     """B4 at the stream headline's block
     (5120 columns x d=50, 100 lanes, k_max 20, k 20 and 7, 4 words, row0 0;
-    also at 1, 3 and 32 splits of a word's lanes), the reference's ragged
-    probe (300 columns, 13 lanes, d 7, k_max 5, 2 words, row0 3), a block whose
+    also at 1, 3 and 32 splits of a word's lanes), at the shard blocks of
+    the ``mesh`` phase's stream on (h=2, n=2) (row shard 0's or 1's 2500
+    elements in its 2560 columns; 'h' row 0's or 1's 50 lanes, gathered
+    along 'n', at row0 0 or 50 of the 4-word block), the reference's
+    ragged probe (300 columns, 13 lanes, d 7, k_max 5, 2 words, row0 3), a block whose
     lanes do not fill a word and straddle two (640 columns, 45 lanes at
     row0 17, d 24, k_max 9, 2 words) and a block whose slots only fit
     unpadded, read one at a time (300 columns, 13 lanes, d 445, k_max 2,
@@ -919,6 +973,8 @@ def kernels_fused(torch, results):
     worst = 0
     for shape, x, n_cols, lanes, k_max, n_words, row0, ks in (
         ("headline", x_head, 5120, 100, 20, 4, 0, (20, 7)),
+        ("mesh shard r=0 h=0", x_head[:2500], 2560, 50, 20, 4, 0, (20, 7)),
+        ("mesh shard r=1 h=1", x_head[2500:], 2560, 50, 20, 4, 50, (20, 7)),
         ("ragged probe", x_rag, 300, 13, 5, 2, 3, (4,)),
         ("partial words, row0 17", x_part, 640, 45, 9, 2, 17, (9, 5)),
         ("scalar layout", x_scalar, 300, 13, 2, 1, 5, (2, 1)),
@@ -1003,9 +1059,10 @@ def _pac_checks(name, ks, pac):
           f"{name}: PAC(K=8)={pac[elbow]} is not at the minimum {pac.min()}")
 
 
-def _drive(torch, phase, results, **kwargs):
+def _drive(torch, phase, results, pin=None, **kwargs):
     """Fit the headline data with the kernels' launch counts set to 0 just
-    before; emit the run and return (fit, launches)."""
+    before; emit the run and return (fit, launches).  The launches must
+    equal ``PINNED_LAUNCHES[pin or phase]``."""
     from consensus_clustering_tpu_torch import ConsensusClustering
     from consensus_clustering_tpu_torch.ops import (
         launch_counts,
@@ -1036,12 +1093,11 @@ def _drive(torch, phase, results, **kwargs):
           f"{phase}: metrics_ launch counts differ")
     _pac_checks(phase, ks, pac)
     same_pac = [float(a) == b for a, b in zip(pac, PINNED_PAC)]
-    emit({"phase": phase, "launches_equal_pinned":
-          launches == PINNED_LAUNCHES[phase],
+    pinned = PINNED_LAUNCHES[pin or phase]
+    emit({"phase": phase, "launches_equal_pinned": launches == pinned,
           "pac_equal_pinned_per_k": same_pac})
-    check(launches == PINNED_LAUNCHES[phase],
-          f"{phase}: launches {launches} != pinned "
-          f"{PINNED_LAUNCHES[phase]}")
+    check(launches == pinned, f"{phase}: launches {launches} != pinned "
+                              f"{pinned}")
     check(all(same_pac), f"{phase}: per-K PAC differs from the pinned run "
                          f"at K={[k for k, e in zip(ks, same_pac) if not e]}")
     _record_launches(results, phase, launches)
@@ -2934,12 +2990,276 @@ def phase_cli(torch, results):
     emit(report)
 
 
+# -- phase 17 ------------------------------------------------------------
+
+#: The mesh phase's cuts: the estimator's H (and block) at N = 100,000, the
+#: two processes' H, and the one-lane-group case's H, Ks and group size.
+MESH = dict(estimate_h=20, ranks_h=100, lane_h=17, lane_ks=(2, 8, 14),
+            lane_batch=8)
+
+_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+from consensus_clustering_tpu_torch import make_blobs
+from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from consensus_clustering_tpu_torch.ops import launch_counts, reset_launch_counts
+from consensus_clustering_tpu_torch.parallel import distributed
+from consensus_clustering_tpu_torch.parallel.mesh import resample_mesh
+from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+coord, pid, procs, h, rows = sys.argv[1], *map(int, sys.argv[2:6])
+cards = [torch.device("cuda", int(i)) for i in sys.argv[6].split(",")]
+distributed.initialize(coord, num_processes=procs, process_id=pid,
+                       local_devices=cards)
+mesh = resample_mesh(row_shards=rows)
+x, _ = make_blobs(n_samples=5000, n_features=50, centers=8, cluster_std=3.0,
+                  random_state=0)
+config = SweepConfig(n_samples=5000, n_features=50,
+                     k_values=tuple(range(2, 21)), n_iterations=h,
+                     store_matrices=False, chunk_size=4, cluster_batch=16)
+reset_launch_counts()
+t0 = time.perf_counter()
+out = run_sweep(KMeans(n_init=3), config, x.astype(np.float32), 23, mesh=mesh)
+print("RESULT " + json.dumps({
+    "pid": pid, "backend": distributed.backend(),
+    "is_primary": distributed.is_primary(), "mesh": mesh.shape,
+    "wall_seconds": time.perf_counter() - t0,
+    "run_seconds": out["timing"]["run_seconds"],
+    "peak_device_bytes": out["timing"]["device_memory"].get(
+        "peak_bytes_in_use"),
+    "launches": launch_counts(), "pac": out["pac_area"].tolist(),
+    "hist": out["hist"].tolist()}), flush=True)
+distributed.shutdown()
+"""
+
+
+def phase_mesh(torch, results):
+    """Multi-device sweeps on the card's virtual meshes (the card repeated):
+    the dense headline on (k=2, h=2, n=2) with ``k_interleave`` and the
+    packed fused stream on (h=2, n=2), each equal to ``PINNED_PAC`` with
+    its launches pinned; the estimator at N = 100,000 on (h=2, n=2) equal
+    to its one-device run; a shard whose last Lloyd group holds one lane;
+    and two gloo processes sharing the card (the monolithic sweep with 'h'
+    across them) equal to one process.  Copies between cards and NCCL are
+    not exercised: the machine has one card."""
+    from consensus_clustering_tpu_torch.parallel import resample_mesh
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    phase_launches = {}
+    for name, kwargs in (
+            ("mesh_dense", dict(mesh=resample_mesh([card] * 8, row_shards=2,
+                                                   k_shards=2),
+                                k_interleave=True)),
+            ("mesh_stream", dict(STREAM, mesh=resample_mesh(
+                [card] * 4, row_shards=2)))):
+        cc, launches = _drive(torch, name, results, **kwargs)
+        per_device = cc.metrics_.get("device_memory", {})
+        emit({"phase": "mesh", "run": name, "mesh": kwargs["mesh"].shape,
+              "peak_device_bytes": per_device.get("peak_bytes_in_use"),
+              "strategy": cc.metrics_.get("timing", {})})
+        for kernel, n in launches.items():
+            phase_launches[kernel] = phase_launches.get(kernel, 0) + n
+        if name == "mesh_stream":
+            check(cc.metrics_.get("timing", {}).get("fuse_block") == "fused",
+                  f"mesh: the stream did not fuse: {cc.metrics_.get('timing')}")
+    check(all(phase_launches.get(k, 0) > 0 for k in KERNEL_NAMES),
+          f"mesh: a kernel was not launched on the mesh path: "
+          f"{phase_launches}")
+    _mesh_estimator(torch, card, resample_mesh)
+    _mesh_one_lane_group(torch, card, resample_mesh)
+    _mesh_processes(torch, "two_processes", ["0,0", "0,0"], 2, "gloo")
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase,
+          "launches": phase_launches, "nvidia_smi": smi_line()})
+
+
+def _mesh_estimator(torch, card, resample_mesh):
+    """The estimator at N = 100,000 (cut to H = MESH['estimate_h'] in one
+    block) on (h=2, n=2) against its one-device run: curves and every
+    sampled pair's counts bit for bit."""
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.estimator.engine import (
+        PairConsensusEngine,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    h = MESH["estimate_h"]
+    x = estimate_data()
+    config = SweepConfig(n_samples=ESTIMATE_N, n_features=50,
+                         k_values=tuple(range(2, 21)), n_iterations=h,
+                         chunk_size=4, cluster_batch=16,
+                         store_matrices=False, stream_h_block=h,
+                         accum_repr="packed")
+    runs = {}
+    for name, where in (("one_device", dict(device=card)),
+                        ("mesh", dict(mesh=resample_mesh([card] * 4,
+                                                         row_shards=2)))):
+        engine = PairConsensusEngine(KMeans(n_init=3), config, **where)
+        engine.warmup()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.run(x, 23, h, return_state=True)
+        runs[name] = (out, time.perf_counter() - t0, launch_counts())
+    (one, one_s, one_l), (got, got_s, got_l) = runs["one_device"], runs["mesh"]
+    same = {name: bool(np.array_equal(got[name], one[name]))
+            for name in ("hist", "cdf", "pac_area")}
+    same.update({f"pair_{name}": bool(np.array_equal(
+        got["pair_state"][name], one["pair_state"][name]))
+        for name in ("pair_i", "pair_j", "mij", "iij")})
+    emit({"phase": "mesh", "run": "estimate",
+          "config": f"make_blobs N={ESTIMATE_N} d=50, H={h} (cut from "
+                    f"{ESTIMATE_H} for time), K=2..20, KMeans(n_init=3), "
+                    "cluster_batch=16, chunk_size=4, packed pairs, 2^17 "
+                    "pairs, seed 23, mesh (h=2, n=2)",
+          "one_device_seconds": one_s, "mesh_seconds": got_s,
+          "one_device_peak_device_bytes": one["timing"]["device_memory"].get(
+              "peak_bytes_in_use"),
+          "mesh_peak_device_bytes": got["timing"]["device_memory"].get(
+              "peak_bytes_in_use"),
+          "one_device_launches": one_l, "mesh_launches": got_l,
+          "equal_to_one_device": same})
+    check(all(same.values()), f"mesh: estimator on (h=2, n=2) != one device "
+                              f"{same}")
+    check(got_l["lloyd"] > 0 and got_l["assign"] > 0,
+          f"mesh: estimator launched {got_l}")
+
+
+def _mesh_one_lane_group(torch, card, resample_mesh):
+    """H = 17 over 2 'h' shards with ``cluster_batch=8``: each shard has 9
+    lane slots, so shard 0's last Lloyd group holds one lane (lane 8) and
+    one device's last group another (lane 16); Mij must be the same."""
+    from consensus_clustering_tpu_torch import ConsensusClustering
+
+    x = headline_data()
+    kw = dict(K_range=MESH["lane_ks"], n_iterations=MESH["lane_h"],
+              random_state=23, cluster_batch=MESH["lane_batch"],
+              chunk_size=4, store_matrices=True)
+    t0 = time.perf_counter()
+    one = ConsensusClustering(device=card, **kw).fit(x)
+    sharded = ConsensusClustering(mesh=resample_mesh([card] * 2), **kw).fit(x)
+    same = {k: bool(np.array_equal(one.cdf_at_K_data[k]["mij"],
+                                   sharded.cdf_at_K_data[k]["mij"]))
+            for k in MESH["lane_ks"]}
+    emit({"phase": "mesh", "run": "one_lane_group",
+          "config": f"headline data, H={MESH['lane_h']}, "
+                    f"K={list(MESH['lane_ks'])}, cluster_batch="
+                    f"{MESH['lane_batch']}, mesh (h=2)",
+          "seconds": time.perf_counter() - t0, "mij_equal_per_k": same})
+    check(all(same.values()), f"mesh: one-lane group Mij differs {same}")
+
+
+def _mesh_processes(torch, name, cards, rows, backend):
+    """One process per entry of ``cards`` (each a comma list of the card
+    indices it holds) in one group: the dense sweep at the headline's
+    width (H cut to MESH['ranks_h']) on the processes' mesh with
+    ``row_shards=rows`` and 'h' across them, against this process's
+    one-device run; the counts must go over ``backend``."""
+    import socket
+
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+    h = MESH["ranks_h"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, coord, str(pid), str(len(cards)),
+         str(h), str(rows), local], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid, local in enumerate(cards)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            check(p.returncode == 0 and bool(line),
+                  f"mesh: a process exited {p.returncode}: {stderr[-2000:]}")
+            if line:
+                outs.append(json.loads(line[0][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    config = SweepConfig(n_samples=5000, n_features=50,
+                         k_values=tuple(range(2, 21)), n_iterations=h,
+                         store_matrices=False, chunk_size=4, cluster_batch=16)
+    t1 = time.perf_counter()
+    one = run_sweep(KMeans(n_init=3), config, headline_data(), 23,
+                    device="cuda")
+    one_s = time.perf_counter() - t1
+    same = [bool(np.array_equal(np.asarray(o["pac"], np.float32),
+                                one["pac_area"])
+                 and np.array_equal(np.asarray(o["hist"], np.float32),
+                                    one["hist"])) for o in outs]
+    emit({"phase": "mesh", "run": name,
+          "config": f"make_blobs N=5000 d=50, H={h} (cut from 500), "
+                    "K=2..20, KMeans(n_init=3), cluster_batch=16, "
+                    f"chunk_size=4, seed 23, {len(cards)} processes holding "
+                    f"cards {cards}, row_shards={rows}",
+          "wall_seconds": wall, "one_process_seconds": one_s,
+          "processes": [{k: v for k, v in o.items()
+                         if k not in ("pac", "hist")} for o in outs],
+          "equal_to_one_process": same})
+    check(len(outs) == len(cards) and all(same),
+          f"mesh: {name} != one process {same}")
+    check([o["is_primary"] for o in outs]
+          == [True] + [False] * (len(cards) - 1)
+          and all(o["backend"] == backend for o in outs),
+          f"mesh: {name} roles "
+          f"{[(o['is_primary'], o['backend']) for o in outs]}")
+
+
+def phase_mesh_cards(torch, results):
+    """Distinct cards (four; a phase for a machine with several, not in
+    the default run): the dense headline on the four cards twice as
+    (k=2, h=2, n=2) with ``k_interleave`` and the packed fused stream on
+    (h=2, n=2), each equal to ``PINNED_PAC`` with the virtual meshes'
+    pinned launches (the same shards, so the same launches), the partial
+    counts moving between cards; four processes with a card each, the
+    sweep at the headline's width (H cut to 100) with 'h' across them over
+    NCCL, equal to one process."""
+    from consensus_clustering_tpu_torch.parallel import resample_mesh
+
+    t_phase = time.perf_counter()
+    check(torch.cuda.device_count() >= 4,
+          f"mesh_cards: needs 4 cards, sees {torch.cuda.device_count()}")
+    if torch.cuda.device_count() < 4:
+        return
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for name, pin, kwargs in (
+            ("mesh_cards_dense", "mesh_dense",
+             dict(mesh=resample_mesh(cards * 2, row_shards=2, k_shards=2),
+                  k_interleave=True)),
+            ("mesh_cards_stream", "mesh_stream",
+             dict(STREAM, mesh=resample_mesh(cards, row_shards=2)))):
+        _drive(torch, name, results, pin=pin, **kwargs)
+        emit({"phase": "mesh_cards", "run": name, "peak_bytes_per_card": {
+            str(c): torch.cuda.max_memory_allocated(c) for c in cards}})
+    _mesh_processes(torch, "four_nccl_processes", ["0", "1", "2", "3"], 1,
+                    "nccl")
+    emit({"phase": "mesh_cards", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES))
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - {"mesh_cards"}
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
 
@@ -2984,6 +3304,10 @@ def main(argv=None):
         phase_serve(torch, results)
     if "cli" in phases:
         phase_cli(torch, results)
+    if "mesh" in phases:
+        phase_mesh(torch, results)
+    if "mesh_cards" in phases:
+        phase_mesh_cards(torch, results)
 
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)

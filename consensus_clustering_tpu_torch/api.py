@@ -45,10 +45,14 @@ takes the estimator when the exact job's footprint exceeds the memory
 budget (:mod:`.serve.preflight`: ``CCTPU_MEMORY_BUDGET``, else the
 device's memory).
 
-Features of the reference package that this package does not have yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them:
-``mesh`` and ``k_interleave`` (A13), and plotting (A15).  Unlike the
-reference, ``plot_cdf`` defaults to False.
+``mesh`` (:func:`.parallel.resample_mesh`) shards the device engines over
+a ('k', 'h', 'n') mesh, with ``k_interleave`` laying the K values out
+round-robin over its k-groups; every mesh gives the one-device result bit
+for bit.
+
+Plotting, which this package does not have yet, raises
+``NotImplementedError`` naming the ROADMAP item that ports it (A15).
+Unlike the reference, ``plot_cdf`` defaults to False.
 """
 
 from __future__ import annotations
@@ -83,6 +87,11 @@ from consensus_clustering_tpu_torch.ops.analysis import (
     bin_edges,
     delta_k,
     select_best_k,
+)
+from consensus_clustering_tpu_torch.parallel.mesh import (
+    KSHARD_AXIS,
+    Mesh,
+    engine_mesh,
 )
 from consensus_clustering_tpu_torch.utils.metrics import MetricsLogger
 
@@ -217,9 +226,16 @@ class ConsensusClustering:
         Calibration store for ``autotune=True`` (default:
         ``CCTPU_CALIBRATION_DIR``; without either, every knob resolves
         to its user-pinned or default tier).
-    mesh, k_interleave : keyword-only
-        Accepted at their defaults; other values raise
-        ``NotImplementedError`` naming the ROADMAP item.
+    mesh : Mesh, keyword-only, optional
+        Device mesh (:func:`.parallel.resample_mesh`) the device engines
+        shard resamples, rows and K values over; default the one device
+        ``device``.  ``device``, if also given, must be its primary device.
+        The host backend ignores it.  The estimator takes a mesh without a
+        'k' axis.
+    k_interleave : bool, keyword-only
+        With a 'k'-sharded mesh, give the k-groups the K values
+        round-robin instead of in contiguous blocks; results are
+        identical.
     """
 
     def __init__(
@@ -274,10 +290,11 @@ class ConsensusClustering:
     ):
         if plot_cdf:
             raise not_ported("plot_cdf=True (plotting)", "A15")
-        if mesh is not None:
-            raise not_ported("mesh (multi-device sweeps)", "A13")
-        if k_interleave:
-            raise not_ported("k_interleave (a 'k'-sharded mesh)", "A13")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a consensus_clustering_tpu_torch Mesh "
+                f"(parallel.resample_mesh), got {type(mesh).__name__}"
+            )
         if mode == "progressive":
             raise ValueError(
                 "mode='progressive' is a serving mode (POST /jobs), "
@@ -338,6 +355,8 @@ class ConsensusClustering:
         self.parallelization_method = parallelization_method
         self.memmap_folder = memmap_folder
         self.device = device
+        self.mesh = mesh
+        self.k_interleave = bool(k_interleave)
         self.store_matrices = store_matrices
         self.parity_zeros = parity_zeros
         self.bins = bins
@@ -464,7 +483,7 @@ class ConsensusClustering:
                 "(store_matrices is False, or 'auto' disabled them for this "
                 "N); pass store_matrices=True explicitly"
             )
-        device = resolve_device(self.device)
+        device = self._device()
         mode, sizing = self._resolve_mode(n, d, device)
         self._autotune_options = {}
         self.autotune_ = None
@@ -485,6 +504,7 @@ class ConsensusClustering:
             chunk_size=self.chunk_size,
             cluster_batch=cluster_batch,
             split_init=bool(split_init),
+            k_interleave=self.k_interleave,
             reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
             stream_h_block=stream_h_block,
             adaptive_tol=self.adaptive_tol,
@@ -654,6 +674,10 @@ class ConsensusClustering:
             return "store_matrices=True (the estimator never builds them)"
         if self.compute_consensus_labels:
             return "compute_consensus_labels needs the matrices"
+        if self.mesh is not None and self.mesh.shape[KSHARD_AXIS] != 1:
+            # The pair engine refuses a 'k'-sharded mesh (its per-K state
+            # is M-sized; lanes shard over ('h', 'n') only).
+            return "k-sharded mesh (the estimator shards over ('h', 'n'))"
         if self._is_host_clusterer():
             return "host-backend clusterer (no device block to stream)"
         return None
@@ -745,6 +769,7 @@ class ConsensusClustering:
             chunk_size=self.chunk_size,
             cluster_batch=self.cluster_batch,
             split_init=bool(self.split_init),
+            k_interleave=self.k_interleave,
             reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
             stream_h_block=self.stream_h_block
             or autotune_stream_block(self.n_iterations),
@@ -778,7 +803,7 @@ class ConsensusClustering:
             with self._profiled(device):
                 out = run_pair_estimate(
                     clusterer, config, X, self.random_state,
-                    n_pairs=self.n_pairs, device=device,
+                    n_pairs=self.n_pairs, device=device, mesh=self.mesh,
                     block_callback=block_cb, checkpointer=ring,
                 )
         finally:
@@ -831,7 +856,17 @@ class ConsensusClustering:
         })
         return self
 
+    def _device(self):
+        """The device results are assembled on: the mesh's primary one,
+        else ``device`` (``cuda`` unless named)."""
+        if self.mesh is not None:
+            return engine_mesh(self.mesh, self.device).primary
+        return resolve_device(self.device)
+
     def _log_host_ignores(self):
+        if self.mesh is not None:
+            logger.info("mesh is a device-path feature; the host backend "
+                        "runs on the mesh's primary device")
         if self.stream_h_block is not None:
             logger.info(
                 "stream_h_block is a device-path feature; the host backend "
@@ -885,7 +920,7 @@ class ConsensusClustering:
 
             out = run_host_sweep(clusterer, config, X, self.random_state,
                                  progress=self.progress, n_jobs=self.n_jobs,
-                                 device=self.device)
+                                 device=self._device())
         elif config.stream_h_block is None:
             from consensus_clustering_tpu_torch.parallel.sweep import (
                 run_sweep,
@@ -893,7 +928,8 @@ class ConsensusClustering:
 
             out = run_sweep(clusterer, config, X, self.random_state,
                             device=self.device,
-                            progress_callback=self.progress_callback)
+                            progress_callback=self.progress_callback,
+                            mesh=self.mesh)
         else:
             from consensus_clustering_tpu_torch.parallel.streaming import (
                 run_streaming_sweep,
@@ -913,7 +949,7 @@ class ConsensusClustering:
                 out = run_streaming_sweep(
                     clusterer, config, X, self.random_state,
                     device=self.device, block_callback=block_cb,
-                    checkpointer=ring,
+                    checkpointer=ring, mesh=self.mesh,
                 )
             finally:
                 # Closed whatever happens; cleared only after the per-K
@@ -965,7 +1001,7 @@ class ConsensusClustering:
 
         return consensus_labels_from_cij(
             cij, k, linkage=self.agg_clustering_linkage, method="auto",
-            seed=int(self.random_state), device=self.device,
+            seed=int(self.random_state), device=self._device(),
         )
 
     def _build_results(self, entries: Dict[int, Dict[str, Any]],

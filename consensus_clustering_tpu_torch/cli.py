@@ -12,9 +12,11 @@ The reference's subcommands with its flags, result JSON and exit codes.
 ``--device cpu`` (without a GPU and without it they exit non-zero);
 nothing falls back to the CPU or to a kernel's plain version.  Flags that
 need a part the port does not have yet exit non-zero naming its ROADMAP
-item: ``--k-shards``/``--row-shards`` above 1 and ``--k-interleave``
-(A13), ``--plot-dir`` and ``lint`` (A15), and ``bench`` (A18: the repo's
-``bench.py`` measures the reference package).  ``serve-admin`` stays off
+item: ``--plot-dir`` and ``lint`` (A15), and ``bench`` (A18: the repo's
+``bench.py`` measures the reference package).  ``run --k-shards/
+--row-shards`` shard the sweep over a mesh of every visible card, or,
+with ``--device`` naming one device, over that device repeated (a
+virtual mesh).  ``serve-admin`` stays off
 the engine and never initialises CUDA: it exists for the moments the
 card is wedged.
 
@@ -99,11 +101,26 @@ def _make_clusterer(name: str):
     return table[name]
 
 
+def _mesh(args, device):
+    """The ('k', 'h', 'n') mesh of ``--k-shards``/``--row-shards`` (None
+    for one device): every visible card, or ``--device`` repeated once per
+    shard when the flag names one device."""
+    if args.k_shards <= 1 and args.row_shards <= 1:
+        return None
+    from consensus_clustering_tpu_torch.parallel.mesh import resample_mesh
+
+    devices = None
+    if args.device is not None:
+        devices = [device] * (max(1, args.k_shards)
+                              * max(1, args.row_shards))
+    try:
+        return resample_mesh(devices, row_shards=args.row_shards,
+                             k_shards=args.k_shards)
+    except ValueError as e:
+        raise SystemExit(f"--k-shards/--row-shards: {e}")
+
+
 def cmd_run(args):
-    if args.k_shards > 1 or args.row_shards > 1:
-        _refuse("--k-shards/--row-shards (multi-device sweeps)", "A13")
-    if args.k_interleave:
-        _refuse("--k-interleave (a 'k'-sharded mesh)", "A13")
     if args.plot_dir:
         _refuse("--plot-dir (plotting)", "A15")
     if args.use_pallas == "off" or args.packed_kernel == "off":
@@ -116,6 +133,16 @@ def cmd_run(args):
     from consensus_clustering_tpu_torch.api import ConsensusClustering
 
     x = _load_dataset(args.dataset, args.n_samples, args.n_features, args.seed)
+    if args.k_interleave and args.k_shards <= 1:
+        # k_interleave only reorders work BETWEEN k-groups; without a
+        # 'k'-axis mesh it is a silent no-op (SweepConfig docs) — tell
+        # the user their load-balance knob did nothing.
+        print(
+            "warning: --k-interleave has no effect without --k-shards "
+            ">= 2 (no 'k' mesh axis to spread K values over)",
+            file=sys.stderr,
+        )
+    mesh = _mesh(args, device)
     # "auto" keeps them for the heatmap of --plot-dir, refused above.
     store_matrices = args.store_matrices == "on"
     progress_cb = None
@@ -165,7 +192,9 @@ def cmd_run(args):
             subsampling=args.subsampling,
             random_state=args.seed,
             plot_cdf=False,
-            device=device,
+            device=device if mesh is None else None,
+            mesh=mesh,
+            k_interleave=args.k_interleave,
             store_matrices=store_matrices,
             checkpoint_dir=args.checkpoint_dir,
             compute_consensus_labels=False,
@@ -480,13 +509,17 @@ def main(argv=None):
                      "full-width pass, group only the Lloyd loop "
                      "(bit-identical)")
     run.add_argument("--k-interleave", action="store_true",
-                     help="multi-device only: not ported (ROADMAP A13)")
+                     help="on a 'k'-sharded mesh: assign K values to "
+                     "k-groups round-robin so slow large-K problems "
+                     "spread across groups (identical results)")
     run.add_argument("--k-shards", type=int, default=1,
-                     help="multi-device only: values above 1 are not "
-                     "ported (ROADMAP A13)")
+                     help="shard the K sweep over this many k-groups "
+                     "of devices (device count must be divisible by "
+                     "k-shards * row-shards; with --device, that device "
+                     "repeated)")
     run.add_argument("--row-shards", type=int, default=1,
-                     help="multi-device only: values above 1 are not "
-                     "ported (ROADMAP A13)")
+                     help="shard the N x N consensus matrices over "
+                     "this many row blocks of devices")
     run.add_argument("--use-pallas", choices=["auto", "on", "off"],
                      default="auto",
                      help="the histogram kernel: auto and on run it on "

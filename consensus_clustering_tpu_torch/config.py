@@ -116,6 +116,10 @@ class SweepConfig:
         Labels are identical for every value: a converged lane is frozen.
       split_init: with ``cluster_batch``, draw every lane's k-means++ init
         in one batch and group only the Lloyd loop (identical labels).
+      k_interleave: with a 'k'-sharded mesh, give the k-groups the K
+        values round-robin (group g runs ``k_values[g::k_shards]``) instead
+        of in contiguous blocks, so the slow large Ks spread over the
+        groups.  Results are identical; no effect without a 'k' axis.
       reseed_clusterer_per_resample: give each resample its own clusterer
         key (False: every resample re-seeds identically, as the reference).
       stream_h_block: resamples per block of the streaming engine
@@ -152,6 +156,7 @@ class SweepConfig:
     chunk_size: int = 8
     cluster_batch: Optional[int] = None
     split_init: bool = False
+    k_interleave: bool = False
     reseed_clusterer_per_resample: bool = False
     stream_h_block: Optional[int] = None
     adaptive_tol: Optional[float] = None

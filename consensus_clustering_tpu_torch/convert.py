@@ -25,9 +25,7 @@ from consensus_clustering_tpu_torch.models.spectral import SpectralClustering
 
 # Reference SweepConfig fields with their defaults that this port can run
 # only at those defaults (each belongs to a feature not ported yet).
-_UNPORTED_DEFAULTS = {
-    "k_interleave": False,
-}
+_UNPORTED_DEFAULTS: Dict[str, Any] = {}
 # Fields that only choose an execution strategy, never a result, and have
 # no counterpart here (the port's kernels always serve the card).
 _STRATEGY_ONLY = {"use_packed_kernel", "use_pallas"}

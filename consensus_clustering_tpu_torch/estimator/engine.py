@@ -26,11 +26,21 @@ sampled pairs only (:mod:`.sampler`):
   estimator's own fingerprint (:func:`..utils.checkpoint.
   estimator_stream_fingerprint`), resumed bit for bit.
 
-One device: the reference's mesh (pair slots sharded over ``'n'``, lanes
-over ``('h', 'n')``) is ROADMAP item A13.  With one device no pair slot
-is padding.  The per-pair AND, popcount, gathers and the masked histogram
-are XLA ops in the reference and plain torch ops here; the clusterer runs
-the port's kernels (B2 and the final assignment on the card).
+- **On an ('h', 'n') mesh** (reference ``local_step``): a block's lanes
+  split over every shard as in the streaming engine, the pair slots over
+  'n' (``m_local`` each, padded to ``m_pad = m_local * n_r`` with the
+  throwaway pair (0, 0), masked out of every curve and cropped from every
+  frame and ``pair_state``); each shard counts its slots over its 'h'
+  row's resamples (the row's labels gathered along 'n'), the increments
+  are summed over 'h' and each K's histogram counts over 'n'.  Every
+  merge is an integer sum, so every mesh gives the one-device counts bit
+  for bit, and a frame resumes under any mesh with the same padded block.
+  A 'k' axis is refused (the per-K state is M-sized); one process only
+  (ROADMAP A19).
+
+The per-pair AND, popcount, gathers and the masked histogram are XLA ops
+in the reference and plain torch ops here; the clusterer runs the port's
+kernels (B2 and the final assignment on the card).
 """
 
 from __future__ import annotations
@@ -43,7 +53,6 @@ import torch
 
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig, not_ported
-from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.estimator.bounds import (
     DEFAULT_DELTA,
     bound_disclosure,
@@ -66,14 +75,27 @@ from consensus_clustering_tpu_torch.ops.bitpack import (
     popcount32,
 )
 from consensus_clustering_tpu_torch.ops.resample import resample_indices
+from consensus_clustering_tpu_torch.parallel.mesh import (
+    KSHARD_AXIS,
+    RESAMPLE_AXIS,
+    ROW_AXIS,
+    Mesh,
+    engine_mesh,
+)
 from consensus_clustering_tpu_torch.parallel.streaming import (
     adaptive_decision,
 )
 from consensus_clustering_tpu_torch.parallel.sweep import (
+    DeviceCopies,
+    _shard_labels,
     build_kernels,
-    fit_resample_lanes,
     launches_since,
-    resample_lane_keys,
+    local_column,
+    per_device_memory,
+    row_lanes,
+    shard_lanes,
+    sweep_geometry,
+    valid_lanes,
 )
 from consensus_clustering_tpu_torch.resilience.blocks import (
     StreamCheckpointer,
@@ -166,10 +188,11 @@ def estimate_curves_from_pair_counts(
 
 
 class PairConsensusEngine:
-    """The pair-count block step on one device plus its host driver.
+    """The pair-count block step on a mesh (default one device) plus its
+    host driver.
 
-    Build once per (shape, config-minus-H, n_pairs) and call :meth:`run`
-    for any ``n_iterations``.
+    Build once per (shape, mesh, config-minus-H, n_pairs) and call
+    :meth:`run` for any ``n_iterations``.
     """
 
     def __init__(
@@ -177,7 +200,7 @@ class PairConsensusEngine:
         clusterer: Clusterer,
         config: SweepConfig,
         n_pairs: Optional[int] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         device=None,
     ):
         if config.stream_h_block is None:
@@ -190,37 +213,95 @@ class PairConsensusEngine:
                 "the pair estimator never materialises matrices; pass "
                 "store_matrices=False (it has nothing N×N to store)"
             )
-        if mesh is not None:
-            raise not_ported("mesh (multi-device sweeps)", "A13")
+        self.mesh = engine_mesh(mesh, device)
+        if self.mesh.shape[KSHARD_AXIS] != 1:
+            raise ValueError(
+                "the pair estimator shards its lane work over the "
+                "('h', 'n') mesh axes only — the per-K state is M-sized "
+                "(a megabyte), so a 'k' axis would shard nothing that "
+                "matters; build the mesh with k_shards=1 and give the "
+                "devices to 'h'/'n'"
+            )
+        if self.mesh.process_count > 1:
+            raise not_ported("the pair estimator on a mesh across "
+                             "processes", "A19")
         self.config = config
         self.clusterer = clusterer
-        self.device = resolve_device(device)
+        self.device = self.mesh.primary
         self.n_pairs = int(
             n_pairs if n_pairs is not None
             else default_n_pairs(config.n_samples)
         )
         if self.n_pairs < 1:
             raise ValueError(f"n_pairs must be >= 1, got {self.n_pairs}")
-        self._hb = config.stream_h_block
+        self._geo = sweep_geometry(config, self.mesh, config.stream_h_block)
+        self._hb = self._geo.h_pad
         self._n_ks = len(config.k_values)
         self._packed = config.accum_repr == "packed"
-        self._wb = packed_width(self._hb)
+        self._m_local = -(-self.n_pairs // self._geo.n_r)
+        self._group_hb = self._geo.n_r * self._geo.local_h
+        self._wb = packed_width(self._group_hb)
 
     # -- state -----------------------------------------------------------
 
-    def init_state(self) -> Dict[str, torch.Tensor]:
-        """Zeroed (nK, M) ``mij`` and (M,) ``iij`` int32 on the device."""
+    def init_state(self) -> Dict[str, Dict[int, torch.Tensor]]:
+        """Zeroed int32 pair-count shards on their devices: ``mij`` (nK,
+        m_local) and ``iij`` (m_local,) per row shard r."""
+        out = {"mij": {}, "iij": {}}
+        for r in range(self._geo.n_r):
+            dev = self.mesh.device(self.mesh.row_owner(0, r))
+            out["mij"][r] = torch.zeros((self._n_ks, self._m_local),
+                                        dtype=torch.int32, device=dev)
+            out["iij"][r] = torch.zeros((self._m_local,), dtype=torch.int32,
+                                        device=dev)
+        return out
+
+    def gather_state(self, state) -> Dict[str, torch.Tensor]:
+        """The counts of the M sampled pairs, padding slots cropped, on
+        the primary device: ``mij`` (nK, M) and ``iij`` (M,)."""
+        owners = {r: self.mesh.row_owner(0, r) for r in range(self._geo.n_r)}
+        axis = self.mesh.axis(owners[0], ROW_AXIS)
         m = self.n_pairs
-        return {
-            "mij": torch.zeros((self._n_ks, m), dtype=torch.int32,
-                               device=self.device),
-            "iij": torch.zeros((m,), dtype=torch.int32, device=self.device),
-        }
+        out = {}
+        for name, dim in (("mij", 1), ("iij", 0)):
+            joined = self.mesh.all_gather(
+                {owners[r]: t for r, t in state[name].items()}, axis,
+                dim=dim, dest=(0, 0, 0))
+            out[name] = joined[..., :m]
+        return out
+
+    def _load_state(self, state, flat: Dict[str, torch.Tensor]) -> None:
+        """Write :meth:`gather_state`-shaped counts into the shards."""
+        m, ml = self.n_pairs, self._m_local
+        for name, value in flat.items():
+            for r, shard in state[name].items():
+                lo, hi = r * ml, min(m, (r + 1) * ml)
+                if hi > lo:
+                    shard[..., :hi - lo].copy_(value[..., lo:hi])
 
     def pairs_for_seed(self, seed: int):
         """The (pair_i, pair_j) int64 sample of a run seed, on the device."""
         return sample_pairs(pair_key(seed, self.device),
                             self.config.n_samples, self.n_pairs)
+
+    def _pair_shards(self, pair_i, pair_j):
+        """Each row shard's (pair_i, pair_j, slot mask) on its devices:
+        padding slots hold the pair (0, 0), masked out."""
+        m, ml = self.n_pairs, self._m_local
+        pad = ml * self._geo.n_r - m
+        if pad:
+            zeros = pair_i.new_zeros(pad)
+            pair_i, pair_j = torch.cat([pair_i, zeros]), torch.cat(
+                [pair_j, zeros])
+        valid = torch.arange(ml * self._geo.n_r, device=pair_i.device) < m
+        out = {}
+        for c in self.mesh.coords():
+            if self.mesh.is_local(c):
+                sl = slice(c[2] * ml, (c[2] + 1) * ml)
+                dev = self.mesh.device(c)
+                out[c] = tuple(t[sl].to(dev) for t in (pair_i, pair_j,
+                                                        valid))
+        return out
 
     def warmup(self) -> float:
         """Build the CUDA kernels (nothing on the CPU); returns seconds."""
@@ -229,8 +310,8 @@ class PairConsensusEngine:
     # -- the block step --------------------------------------------------
 
     def _scatter(self, indices, values) -> torch.Tensor:
-        """(h_block, N) int32 with ``values`` at each row's sampled
-        columns, 0 elsewhere (padding rows hold -1 indices: dropped)."""
+        """(rows, N) int32 with ``values`` at each row's sampled columns, 0
+        elsewhere (padding rows hold -1 indices: dropped)."""
         hb = indices.shape[0]
         rows = torch.arange(hb, device=indices.device)[:, None].expand_as(
             indices)
@@ -241,7 +322,8 @@ class PairConsensusEngine:
         return out
 
     def _iij_increment(self, indices, pair_i, pair_j) -> torch.Tensor:
-        """(M,) int32: the block's resamples holding both ends of a pair."""
+        """(m_local,) int32: the rows' resamples holding both ends of a
+        pair."""
         if self._packed:
             coplane = pack_cosample_planes(indices, self.config.n_samples,
                                            n_words=self._wb)
@@ -251,8 +333,8 @@ class PairConsensusEngine:
         return (samp[:, pair_i] * samp[:, pair_j]).sum(0, dtype=torch.int32)
 
     def _mij_increment(self, labels, indices, pair_i, pair_j) -> torch.Tensor:
-        """(M,) int32: the block's resamples clustering both ends of a pair
-        together."""
+        """(m_local,) int32: the rows' resamples clustering both ends of a
+        pair together."""
         if self._packed:
             # Every cluster's plane at once; the reference builds the same
             # words one cluster at a time.
@@ -266,64 +348,80 @@ class PairConsensusEngine:
         li, lj = labmat[:, pair_i], labmat[:, pair_j]
         return ((li > 0) & (li == lj)).sum(0, dtype=torch.int32)
 
-    def step(self, state, x, pair_i, pair_j, key, h_start: int,
+    def step(self, state, x, pairs, key, h_start: int,
              h_total: int) -> torch.Tensor:
         """One block: adds its counts to ``state`` in place; returns the
         (nK, bins) int32 histogram counts of every K's sampled-pair
-        consensus so far."""
-        config = self.config
-        hb = self._hb
+        consensus so far.  ``pairs`` is :meth:`_pair_shards` of the run's
+        sample."""
+        config, geo, mesh = self.config, self._geo, self.mesh
+        on = DeviceCopies(mesh)
         pair = rng.split(key)
         key_resample, key_cluster = pair[0], pair[1]
-        indices = resample_indices(key_resample, config.n_samples, hb,
+        indices = resample_indices(key_resample, config.n_samples, self._hb,
                                    config.n_sub, h_start=h_start)
-        n_valid = max(0, min(hb, h_total - h_start))
-        indices[n_valid:] = -1
-        h_global = h_start + torch.arange(hb, dtype=torch.int64,
-                                          device=self.device)
-        x_sub = x[indices[:n_valid]]
-        state["iij"] += self._iij_increment(indices, pair_i, pair_j)
-        iij_f = state["iij"].to(torch.float32) + device_scalar(
-            1e-6, self.device)
-        every = torch.ones((1, self.n_pairs), dtype=torch.bool,
-                           device=self.device)
+        indices[max(0, min(self._hb, h_total - h_start)):] = -1
+
+        def rows(c):
+            return on(indices, c)[row_lanes(geo, c[1])]
+
+        cons_div = {}
+        for r in range(geo.n_r):
+            parts = {c: self._iij_increment(rows(c), *pairs[c][:2])
+                     for c in local_column(mesh, 0, r)}
+            state["iij"][r] += mesh.psum(
+                parts, mesh.axis((0, 0, r), RESAMPLE_AXIS))
+            cons_div[r] = state["iij"][r].to(torch.float32) + device_scalar(
+                1e-6, state["iij"][r].device)
+        x_sub = {c: on(x, c)[on(indices, c)[shard_lanes(geo, c)]
+                             [:valid_lanes(geo, c, h_total, h_start)]]
+                 for c in mesh.coords() if mesh.is_local(c)}
         counts = []
         for i, k in enumerate(config.k_values):
-            labels = torch.full((hb, config.n_sub), -1, dtype=torch.int64,
-                                device=self.device)
-            if n_valid:
-                keys = resample_lane_keys(config, key_cluster, k,
-                                          h_global[:n_valid])
-                labels[:n_valid] = fit_resample_lanes(
-                    self.clusterer, config, keys, x_sub, k, config.k_max)
-            state["mij"][i] += self._mij_increment(labels, indices, pair_i,
-                                                   pair_j)
-            # The dense consensus arithmetic at the sampled pairs: an f32
-            # divide with the 1e-6 regulariser (pairs are i < j: no
-            # diagonal).
-            cons = state["mij"][i].to(torch.float32) / iij_f
-            counts.append(masked_histogram_counts(cons[None, :], every,
-                                                  config.bins))
+            labels = {c: _shard_labels(self.clusterer, config, geo, c,
+                                       on(key_cluster, c), k, xs, h_total,
+                                       h_start)
+                      for c, xs in x_sub.items()}
+            hist = {}
+            for r in range(geo.n_r):
+                parts = {}
+                for c in local_column(mesh, 0, r):
+                    group = mesh.all_gather(labels, mesh.axis(c, ROW_AXIS),
+                                            dest=c)
+                    parts[c] = self._mij_increment(group, rows(c),
+                                                   *pairs[c][:2])
+                mij = state["mij"][r][i]
+                mij += mesh.psum(parts, mesh.axis((0, 0, r), RESAMPLE_AXIS))
+                # The dense consensus arithmetic at the sampled pairs: an
+                # f32 divide with the 1e-6 regulariser (pairs are i < j: no
+                # diagonal); padding slots are masked out.
+                o = mesh.row_owner(0, r)
+                cons = mij.to(torch.float32) / cons_div[r]
+                hist[o] = masked_histogram_counts(
+                    cons[None, :], pairs[o][2][None, :], config.bins)
+            counts.append(mesh.psum(
+                hist, mesh.axis(mesh.row_owner(0, 0), ROW_AXIS)
+            ).to(self.device))
         return torch.stack(counts)
 
     # -- resilience ------------------------------------------------------
 
     @staticmethod
-    def _integrity_stats(state, h_seen: int) -> Dict[str, int]:
-        """The O(M) invariant sentinel: violations of ``0 <= mij <= iij``
-        and ``0 <= iij <= h_seen``, all zero for a valid state."""
-        mij, iij = state["mij"], state["iij"]
+    def _integrity_stats(flat, h_seen: int) -> Dict[str, int]:
+        """The O(M) invariant sentinel on :meth:`gather_state`'s counts:
+        violations of ``0 <= mij <= iij`` and ``0 <= iij <= h_seen``, all
+        zero for a valid state."""
+        mij, iij = flat["mij"], flat["iij"]
         range_bad = ((mij < 0) | (mij > iij[None, :])).sum()
         bound_bad = ((iij < 0) | (iij > h_seen)).sum()
         return {"range_bad": int(range_bad), "bound_bad": int(bound_bad)}
 
-    @staticmethod
-    def _flip_state_bits(state, nbits: int, block: int) -> None:
+    def _flip_state_bits(self, state, nbits: int, block: int) -> None:
         """The ``accumulator`` bitflip fault on ``mij``, in place (reached
         only when a fault plan armed it)."""
-        host = state["mij"].cpu().numpy().copy()
+        host = self.gather_state(state)["mij"].cpu().numpy().copy()
         flip_array_bits(host, nbits, seed=block)
-        state["mij"].copy_(torch.from_numpy(host))
+        self._load_state(state, {"mij": torch.from_numpy(host)})
 
     def _verify_frame(self, header, arrays) -> Optional[str]:
         """:func:`verify_pair_state_frame` after the counts' shapes are
@@ -391,6 +489,7 @@ class PairConsensusEngine:
                                                dtype=config.torch_dtype)
         key = rng.prng_key(seed, device)
         pair_i, pair_j = self.pairs_for_seed(seed)
+        pairs = self._pair_shards(pair_i, pair_j)
         n_blocks = -(-n_iterations // hb)
         trajectory: List[List[float]] = []
         prev_pac = None
@@ -413,12 +512,11 @@ class PairConsensusEngine:
             resume = checkpointer.latest(ckpt_fp, verify=self._verify_frame)
             if resume is not None:
                 header, arrays = resume
-                state = {
-                    "mij": torch.from_numpy(np.ascontiguousarray(
-                        arrays["state_mij"])).to(device),
-                    "iij": torch.from_numpy(np.ascontiguousarray(
-                        arrays["state_iij"])).to(device),
-                }
+                state = self.init_state()
+                self._load_state(state, {
+                    name: torch.from_numpy(np.ascontiguousarray(
+                        arrays[f"state_{name}"])).to(device)
+                    for name in ("mij", "iij")})
                 trajectory = [[float(v) for v in row]
                               for row in header["trajectory"]]
                 if trajectory:
@@ -456,7 +554,7 @@ class PairConsensusEngine:
             for b in range(start_block, start_block if resume_terminal
                            else n_blocks):
                 faults.fire("block_start", index=b)
-                counts = self.step(state, xd, pair_i, pair_j, key, b * hb,
+                counts = self.step(state, xd, pairs, key, b * hb,
                                    n_iterations)
                 h_done = min((b + 1) * hb, n_iterations)
                 nbits = faults.corrupt("accumulator", index=b)
@@ -465,7 +563,8 @@ class PairConsensusEngine:
                 if check_due(b):
                     integrity_checks += 1
                     bad = {name: v for name, v in
-                           self._integrity_stats(state, h_done).items() if v}
+                           self._integrity_stats(self.gather_state(state),
+                                                 h_done).items() if v}
                     if bad:
                         raise IntegrityError(
                             "accumulator",
@@ -496,8 +595,9 @@ class PairConsensusEngine:
                 if checkpointer is not None:
                     # Copies: the next block updates the state in place.
                     arrays = {f"state_{name}":
-                              state[name].to("cpu", copy=True).numpy()
-                              for name in ("mij", "iij")}
+                              value.to("cpu", copy=True).numpy()
+                              for name, value in
+                              self.gather_state(state).items()}
                     arrays.update({f"curve_{name}": v
                                    for name, v in curves.items()})
                     checkpointer.write_async({
@@ -525,14 +625,16 @@ class PairConsensusEngine:
                 checkpointer.flush()
         out: Dict[str, Any] = dict(curves)
         if return_state:
+            flat = self.gather_state(state)
             out["pair_state"] = {
                 "pair_i": pair_i.cpu().numpy(),
                 "pair_j": pair_j.cpu().numpy(),
-                "mij": state["mij"].cpu().numpy(),
-                "iij": state["iij"].cpu().numpy(),
+                "mij": flat["mij"].cpu().numpy(),
+                "iij": flat["iij"].cpu().numpy(),
             }
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        for dev in self.mesh.local_devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         run_seconds = time.perf_counter() - t0
         del state
         out["streaming"] = {
@@ -560,7 +662,9 @@ class PairConsensusEngine:
                 run_seconds, 1e-9),
             "device": torch.cuda.get_device_name(device) if on_cuda else "cpu",
             "device_memory": device_memory_stats(device) if on_cuda else {},
+            "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
+            "mesh": dict(self.mesh.shape),
         }
         return out
 

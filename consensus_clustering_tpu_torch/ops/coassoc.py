@@ -8,6 +8,8 @@ both the resample and the label axis, which is ``sum_h C_h^T C_h``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -38,6 +40,10 @@ def coassociation_counts(
     n_samples: int,
     k_max: int,
     chunk_size: int = 8,
+    *,
+    n_cols: Optional[int] = None,
+    row_start: Optional[int] = None,
+    n_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """(N, N) int32 ``Mij`` from (H, n_sub) labels and subsample indices.
 
@@ -45,16 +51,27 @@ def coassociation_counts(
     products and integer partial sums below 2^24 are exact in f32, so the
     counts equal the serial reference bit for bit.  (bf16 operands would
     give a bf16 product, which rounds integers above 256.)
+
+    ``n_cols`` is the one-hot width (default N: a mesh's row-padded width,
+    whose columns >= N stay zero); ``row_start``/``n_rows`` select the
+    ``[row_start, row_start + n_rows)`` row block of the result, a 'n'
+    shard's.
     """
+    if n_cols is None:
+        n_cols = n_samples
+    if (row_start is None) != (n_rows is None):
+        raise ValueError("row_start and n_rows must be passed together")
     n_iterations = labels.shape[0]
     chunk = max(1, min(chunk_size, n_iterations))
+    out_rows = n_cols if row_start is None else n_rows
     mij = torch.zeros(
-        (n_samples, n_samples), dtype=torch.float32, device=labels.device
+        (out_rows, n_cols), dtype=torch.float32, device=labels.device
     )
     for start in range(0, n_iterations, chunk):
         c = _one_hot_chunk(
             labels[start:start + chunk], indices[start:start + chunk],
-            k_max, n_samples,
+            k_max, n_cols,
         )
-        mij.addmm_(c.T, c)
+        left = c if row_start is None else c[:, row_start:row_start + n_rows]
+        mij.addmm_(left.T, c)
     return mij.to(torch.int32)

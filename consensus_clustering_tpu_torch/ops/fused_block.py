@@ -264,13 +264,16 @@ def assign_labels_kernel(
     labels = torch.empty((lanes, n), dtype=torch.int64, device=x.device)
     dmin = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
     lib = _library()
-    status = lib.cc_assign_labels(
-        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
-        per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
-        ks, cg,
-        int(vec), labels.data_ptr(),
-        dmin.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(x.device):
+        status = lib.cc_assign_labels(
+            x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
+            per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
+            ks, cg,
+            int(vec), labels.data_ptr(),
+            dmin.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _check_status(lib, status, "assignment")
     assign_launch_count += 1
     return labels, dmin
@@ -386,13 +389,16 @@ def fused_assign_pack_kernel(
     parts = (torch.empty((k_max, n_words * splits, n_cols), dtype=torch.int32,
                          device=x_cols.device) if splits > 1 else None)
     lib = _library()
-    status = lib.cc_fused_assign_pack(
-        x_cols.data_ptr(), centroids.data_ptr(), n_lanes, n_cols, d, k_max,
-        int(k), xs, ks, int(vec), coplanes.data_ptr(), int(row0), n_words,
-        splits, min(group, -(-PACK_BITS // splits)),
-        parts.data_ptr() if parts is not None else None, planes.data_ptr(),
-        torch.cuda.current_stream(x_cols.device).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(x_cols.device):
+        status = lib.cc_fused_assign_pack(
+            x_cols.data_ptr(), centroids.data_ptr(), n_lanes, n_cols, d, k_max,
+            int(k), xs, ks, int(vec), coplanes.data_ptr(), int(row0), n_words,
+            splits, min(group, -(-PACK_BITS // splits)),
+            parts.data_ptr() if parts is not None else None, planes.data_ptr(),
+            torch.cuda.current_stream(x_cols.device).cuda_stream,
+        )
     _check_status(lib, status, "fused assign+pack")
     launch_count += 1
     return planes

@@ -94,11 +94,14 @@ def consensus_hist_counts_kernel(
     cij = cij.contiguous()
     out = torch.zeros(bins, dtype=torch.int32, device=cij.device)
     lib = _library()
-    status = lib.cc_hist_counts(
-        cij.data_ptr(), cij.shape[0], cij.shape[1], int(row_offset),
-        int(n_valid), _host_edges(bins).ctypes.data, bins, out.data_ptr(),
-        torch.cuda.current_stream(cij.device).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(cij.device):
+        status = lib.cc_hist_counts(
+            cij.data_ptr(), cij.shape[0], cij.shape[1], int(row_offset),
+            int(n_valid), _host_edges(bins).ctypes.data, bins, out.data_ptr(),
+            torch.cuda.current_stream(cij.device).cuda_stream,
+        )
     _check_status(lib, status)
     launch_count += 1
     return out
@@ -152,11 +155,14 @@ def consensus_hist_from_counts_kernel(
         )
     mij, iij = mij.contiguous(), iij.contiguous()
     lib = _library()
-    status = lib.cc_hist_from_counts(
-        mij.data_ptr(), iij.data_ptr(), mij.shape[0], mij.shape[1],
-        int(row_offset), int(n_valid), _host_edges(bins).ctypes.data, bins,
-        out.data_ptr(), torch.cuda.current_stream(mij.device).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(mij.device):
+        status = lib.cc_hist_from_counts(
+            mij.data_ptr(), iij.data_ptr(), mij.shape[0], mij.shape[1],
+            int(row_offset), int(n_valid), _host_edges(bins).ctypes.data, bins,
+            out.data_ptr(), torch.cuda.current_stream(mij.device).cuda_stream,
+        )
     _check_status(lib, status)
     launch_count += 1
     return out

@@ -207,14 +207,17 @@ def lloyd_step_kernel(
     counts = torch.empty((lanes, k_max), dtype=torch.float32, device=dev)
     far_idx = torch.empty((lanes, k_max), dtype=torch.int64, device=dev)
     lib = _library()
-    status = lib.cc_lloyd_step(
-        x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
-        per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
-        ks, cg,
-        int(vec), part_sums, part_fval, part_fidx, sums.data_ptr(),
-        counts.data_ptr(), far_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(dev):
+        status = lib.cc_lloyd_step(
+            x.data_ptr(), lane_src.data_ptr(), centroids.data_ptr(), lanes,
+            per_block or lanes_per_block(lanes, b, n), n, d, k_max, int(k), xs,
+            ks, cg,
+            int(vec), part_sums, part_fval, part_fidx, sums.data_ptr(),
+            counts.data_ptr(), far_idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if status != 0:
         raise RuntimeError(
             f"Lloyd kernel launch failed: {lib.cc_error_string(status).decode()}"

@@ -70,11 +70,14 @@ def packed_coassoc_counts_kernel(
     n_cols = cols.shape[1]
     out = torch.empty((n_rows, n_cols), dtype=torch.int32, device=rows.device)
     lib = _library()
-    status = lib.cc_popcount_counts(
-        rows.data_ptr(), cols.data_ptr(), n_words, n_rows, n_cols,
-        max(rows.stride(0), n_rows), max(cols.stride(0), n_cols),
-        out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream,
-    )
+    # Launch on the tensors' card: the stream is that card's, and the
+    # library reads the current device (its shared-memory reservations).
+    with torch.cuda.device(rows.device):
+        status = lib.cc_popcount_counts(
+            rows.data_ptr(), cols.data_ptr(), n_words, n_rows, n_cols,
+            max(rows.stride(0), n_rows), max(cols.stride(0), n_cols),
+            out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream,
+        )
     if status != 0:
         raise RuntimeError(
             f"popcount kernel launch failed: "

@@ -25,7 +25,7 @@ card's kernels against the plain versions on the card this way).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +45,13 @@ def packed_hist_counts(
     tile_rows: int = TILE_ROWS,
     *,
     n_valid: Optional[int] = None,
+    rows: Optional[Tuple[int, int]] = None,
     popcount_fn: Optional[Callable[..., torch.Tensor]] = None,
     hist_fn: Optional[Callable[..., torch.Tensor]] = None,
     tile_callback: Optional[Callable[[int, int], None]] = None,
 ) -> torch.Tensor:
-    """(nK, bins) int64 strict-upper-triangle bin counts of each K's Cij.
+    """(nK, bins) int64 strict-upper-triangle bin counts of each K's Cij
+    (or of its rows ``rows = (start, stop)``, a mesh's row shard).
 
     Args:
       words: (nK, L, C) int32 words, each K's cluster planes stacked along
@@ -58,6 +60,8 @@ def packed_hist_counts(
       bins: histogram bins over [0, 1].
       tile_rows: rows of a tile (>= 1).
       n_valid: N, default C; elements >= N are padding.
+      rows: the global rows binned, default all C; tiles start at
+        ``start``.
       popcount_fn, hist_fn: default :func:`.popcount.packed_coassoc_counts`
         and :func:`.hist.consensus_hist_from_counts`.
       tile_callback: ``cb(tile_index, rows_done)`` after each tile.
@@ -68,15 +72,17 @@ def packed_hist_counts(
     hist_fn = hist_fn or consensus_hist_from_counts
     n_ks, _, n = words.shape
     n_valid = n if n_valid is None else int(n_valid)
+    start, stop = (0, n) if rows is None else rows
     counts = torch.zeros((n_ks, bins), dtype=torch.int64, device=words.device)
-    for r0 in range(0, n, tile_rows):
-        tile = slice(r0, r0 + tile_rows)
+    for r0 in range(start, stop, tile_rows):
+        tile = slice(r0, min(stop, r0 + tile_rows))
         iij_t = popcount_fn(cowords[:, tile], cowords)
         for i in range(n_ks):
             mij_t = popcount_fn(words[i, :, tile], words[i])
             hist_fn(mij_t, iij_t, n_valid, r0, bins, counts[i])
         if tile_callback is not None:
-            tile_callback(r0 // tile_rows, min(n, r0 + tile_rows))
+            tile_callback((r0 - start) // tile_rows,
+                          min(stop, r0 + tile_rows) - start)
     return counts
 
 

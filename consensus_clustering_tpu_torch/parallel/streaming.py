@@ -1,8 +1,9 @@
-"""The streaming H-block sweep on one device: state kept on the device,
-H a runtime argument, adaptive early stop.
+"""The streaming H-block sweep: state kept on the device, H a runtime
+argument, adaptive early stop.
 
-The port of the reference package's ``parallel/streaming.py`` for one
-device.  The sweep runs as blocks of ``stream_h_block`` resamples:
+The port of the reference package's ``parallel/streaming.py``, described
+here on one device (on a mesh see :class:`StreamingSweep`).  The sweep runs
+as blocks of ``stream_h_block`` resamples:
 
 - **State on the device.**  Dense: per-K ``mij`` (nK, N, N) and ``iij``
   (N, N) int32.  Packed: per-K cluster bit-planes ``planes`` (nK, k_max,
@@ -53,7 +54,6 @@ import torch
 
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig, not_ported
-from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
@@ -62,22 +62,33 @@ from consensus_clustering_tpu_torch.ops.bitpack import (
     pack_label_planes,
     packed_width,
 )
-from consensus_clustering_tpu_torch.ops.coassoc import coassociation_counts
 from consensus_clustering_tpu_torch.ops.fused_block import fused_assign_pack
 from consensus_clustering_tpu_torch.ops.hist import consensus_hist_from_counts
 from consensus_clustering_tpu_torch.ops.popcount import packed_coassoc_counts
-from consensus_clustering_tpu_torch.ops.resample import (
-    cosample_counts,
-    resample_indices,
-)
+from consensus_clustering_tpu_torch.ops.resample import resample_indices
 from consensus_clustering_tpu_torch.ops.tiles import packed_hist_counts
+from consensus_clustering_tpu_torch.parallel.mesh import (
+    RESAMPLE_AXIS,
+    ROW_AXIS,
+    Mesh,
+    engine_mesh,
+)
 from consensus_clustering_tpu_torch.parallel.sweep import (
+    DeviceCopies,
+    _coassoc,
+    _cosample,
+    _shard_centroids,
+    _shard_labels,
     build_kernels,
     curves_from_counts,
-    fit_resample_lanes,
     kernel_route,
     launches_since,
-    resample_lane_keys,
+    local_column,
+    per_device_memory,
+    row_lanes,
+    shard_lanes,
+    sweep_geometry,
+    valid_lanes,
 )
 from consensus_clustering_tpu_torch.resilience.blocks import (
     StreamCheckpointer,
@@ -107,6 +118,15 @@ from consensus_clustering_tpu_torch.utils.metrics import (
 TILE_ROWS = 256
 
 
+def _row_tiles(n_elems: int) -> Tuple[int, int]:
+    """``(n_tiles, tile_r)``: n_tiles equal tiles of tile_r rows (a multiple
+    of 8) that cover ``n_elems`` element columns; the packed element width
+    is their product."""
+    n_tiles = -(-n_elems // TILE_ROWS)
+    tile_r = -(-n_elems // n_tiles)
+    return n_tiles, -(-tile_r // 8) * 8
+
+
 def adaptive_decision(
     prev_pac: Optional[np.ndarray],
     pac: np.ndarray,
@@ -134,17 +154,36 @@ def adaptive_decision(
 
 
 class StreamingSweep:
-    """The H-block step on one device plus the host driver that streams it.
+    """The H-block step on a mesh (default one device) plus the host
+    driver that streams it.
 
-    Build once per (shape, config-minus-H) and call :meth:`run` for any
-    ``n_iterations`` (packed: up to the capacity of the build config's H).
+    Build once per (shape, mesh, config-minus-H) and call :meth:`run` for
+    any ``n_iterations`` (packed: up to the capacity of the build config's
+    H).
+
+    On a mesh (reference ``StreamingSweep``'s ``local_step`` and
+    ``local_step_packed``) a block's ``hb_pad`` rows (``stream_h_block``
+    padded to a multiple of the ('h' x 'n') shards) split over every
+    shard, as in :func:`..parallel.sweep.build_sweep`; the state is kept
+    per (k-group, row shard) on the device of that 'h' column's first
+    shard: dense ``mij`` (k_local, n_local, n_pad) and ``iij`` row blocks,
+    packed ``planes`` (k_local, k_max, w_cap, n_local_pack) and
+    ``coplanes`` for the shard's element columns.  Packed, each shard packs
+    its 'h' row's bits for its own columns, the block planes are summed
+    over 'h' (disjoint bits: the sum is an OR), and the planes are
+    gathered along 'n' for the popcount tiles; fused, the per-lane
+    centroids are gathered instead of labels.  Frames, the sentinels,
+    ``capture_state`` and ``finalize`` see the state cropped to N and in
+    K order (:meth:`gather_state`), which no mesh changes, so a frame
+    written under one mesh resumes under any mesh with the same padded
+    block.  One process only (ROADMAP A19).
     """
 
     def __init__(
         self,
         clusterer: Clusterer,
         config: SweepConfig,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         device=None,
     ):
         if config.stream_h_block is None:
@@ -153,14 +192,19 @@ class StreamingSweep:
                 "resamples-per-block size); use build_sweep for the "
                 "monolithic program"
             )
-        if mesh is not None:
-            raise not_ported("mesh (multi-device sweeps)", "A13")
+        self.mesh = engine_mesh(mesh, device)
+        if self.mesh.process_count > 1:
+            raise not_ported("the streaming engine on a mesh across "
+                             "processes", "A19")
         self.config = config
         self.clusterer = clusterer
-        self.device = resolve_device(device)
-        n = config.n_samples
-        self._hb = config.stream_h_block
+        self.device = self.mesh.primary
+        geo = sweep_geometry(config, self.mesh, config.stream_h_block)
+        self._geo = geo
+        self._hb = geo.h_pad
         self._n_ks = len(config.k_values)
+        self._k_local = len(geo.k_values_pad) // geo.n_k
+        self._orig = geo.k_original()
         packed = config.accum_repr == "packed"
         self._packed = packed
         self.packed_kernel = None
@@ -195,18 +239,110 @@ class StreamingSweep:
             self._wb = packed_width(self._hb)
             self._w_cap = self._n_blocks_cap * self._wb
             # Row tiles of the evaluation: n_tiles equal tiles of tile_r
-            # rows (a multiple of 8) cover N; columns >= N hold no bits.
-            self._n_tiles = -(-n // TILE_ROWS)
-            tile_r = -(-n // self._n_tiles)
-            self._tile_r = -(-tile_r // 8) * 8
-            self._n_pad2 = self._tile_r * self._n_tiles
+            # rows (a multiple of 8) cover a shard's n_local columns, so a
+            # tile never crosses into another shard's; columns >= N hold
+            # no bits.
+            self._n_tiles, self._tile_r = _row_tiles(geo.n_local)
+            self._n_local_pack = self._tile_r * self._n_tiles
+            self._n_pad2 = self._n_local_pack * geo.n_r
 
     # -- state -----------------------------------------------------------
 
-    def init_state(self) -> Dict[str, torch.Tensor]:
-        """Fresh zeroed int32 state, made on the device."""
-        return {name: torch.zeros(shape, dtype=torch.int32, device=self.device)
-                for name, shape in self._state_shapes().items()}
+    def _owners(self):
+        """(g, r) -> the coordinate keeping that state shard."""
+        return {(g, r): self.mesh.row_owner(g, r)
+                for g in range(self._geo.n_k) for r in range(self._geo.n_r)}
+
+    def _shard_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        geo, k_max = self._geo, self.config.k_max
+        if self._packed:
+            return {"planes": (self._k_local, k_max, self._w_cap,
+                               self._n_local_pack),
+                    "coplanes": (self._w_cap, self._n_local_pack)}
+        return {"mij": (self._k_local, geo.n_local, geo.n_pad),
+                "iij": (geo.n_local, geo.n_pad)}
+
+    def init_state(self) -> Dict[str, Dict[Tuple[int, int], torch.Tensor]]:
+        """Fresh zeroed int32 state shards, made on their devices:
+        ``{name: {(g, r): tensor}}``."""
+        owners = self._owners()
+        return {name: {gr: torch.zeros(shape, dtype=torch.int32,
+                                       device=self.mesh.device(c))
+                       for gr, c in owners.items()}
+                for name, shape in self._shard_shapes().items()}
+
+    def _k_rows(self):
+        """K position i -> (k-group, local slot) of its state row."""
+        rows = [None] * self._n_ks
+        for p, i in enumerate(self._orig):
+            if i < self._n_ks:
+                rows[i] = divmod(p, self._k_local)
+        return rows
+
+    def _gather_rows(self, shards, g: int, dim: int) -> torch.Tensor:
+        """One k-group's shards of a state tensor joined along ``dim`` (the
+        element axis) on the primary device."""
+        parts = {self.mesh.row_owner(g, r): shards[(g, r)]
+                 for r in range(self._geo.n_r)}
+        return self.mesh.all_gather(
+            parts, self.mesh.axis(self.mesh.row_owner(g, 0), ROW_AXIS),
+            dim=dim, dest=(0, 0, 0))
+
+    def gather_state(self, state) -> Dict[str, torch.Tensor]:
+        """The state in K order on the primary device, in the layout of
+        the one-device engine, which no mesh changes: what the frames, the
+        sentinels, ``capture_state`` and :meth:`finalize` read.  Dense
+        ``mij`` (nK, N, N) and ``iij`` (N, N); packed ``planes`` (nK, k_max,
+        w_cap, W) and ``coplanes`` (w_cap, W), with W the one-device
+        element width (:meth:`_frame_width`; columns >= N hold no bits).
+        On one device these are the state's own tensors."""
+        n = self.config.n_samples
+        per_k, whole = ("planes", "coplanes") if self._packed else (
+            "mij", "iij")
+        groups = {g: self._gather_rows(state[per_k], g,
+                                       3 if self._packed else 1)
+                  for g in range(self._geo.n_k)}
+        rows = self._k_rows()
+        if self._geo.n_k == 1 and rows == [(0, j) for j in range(self._n_ks)]:
+            stacked = groups[0][:self._n_ks]
+        else:
+            stacked = torch.stack([groups[g][j] for g, j in rows])
+        other = self._gather_rows(state[whole], 0, 1 if self._packed else 0)
+        if not self._packed:
+            return {per_k: stacked[:, :n, :n], whole: other[:n, :n]}
+        width = self._frame_width()
+        return {per_k: _to_width(stacked, width),
+                whole: _to_width(other, width)}
+
+    def _frame_width(self) -> int:
+        """The packed element width of the one-device layout: the frames'
+        (the reference's one-device frames have it too)."""
+        n_tiles, tile_r = _row_tiles(self.config.n_samples)
+        return n_tiles * tile_r
+
+    def _load_state(self, state, flat: Dict[str, torch.Tensor]) -> None:
+        """Write :meth:`gather_state`-shaped tensors into the shards, in
+        place; columns >= N are not written."""
+        geo, n = self._geo, self.config.n_samples
+        width = self._n_local_pack if self._packed else geo.n_local
+        for name, value in flat.items():
+            for (g, r), shard in state[name].items():
+                lo = r * width
+                hi = min(n, lo + width)
+                if hi <= lo:
+                    continue
+                if name == "planes":
+                    for i, (gi, j) in enumerate(self._k_rows()):
+                        if gi == g:
+                            shard[j, ..., :hi - lo].copy_(value[i, ..., lo:hi])
+                elif name == "coplanes":
+                    shard[:, :hi - lo].copy_(value[:, lo:hi])
+                elif name == "mij":
+                    for i, (gi, j) in enumerate(self._k_rows()):
+                        if gi == g:
+                            shard[j, :hi - lo, :n].copy_(value[i, lo:hi])
+                else:
+                    shard[:hi - lo, :n].copy_(value[lo:hi])
 
     def warmup(self) -> float:
         """Build the CUDA kernels (nothing on the CPU); returns seconds."""
@@ -215,109 +351,177 @@ class StreamingSweep:
     # -- the block step --------------------------------------------------
 
     def _block_plan(self, key_resample, h_start: int, h_total: int):
-        """The block's (hb, n_sub) plan with rows >= h_total set to -1, its
-        global resample ids, and the count of valid rows."""
+        """The block's (hb_pad, n_sub) plan with rows >= h_total set to
+        -1."""
         config = self.config
         indices = resample_indices(
             key_resample, config.n_samples, self._hb, config.n_sub,
             h_start=h_start,
         )
-        h_global = h_start + torch.arange(
-            self._hb, dtype=torch.int64, device=self.device
-        )
         n_valid = max(0, min(self._hb, h_total - h_start))
         indices[n_valid:] = -1
-        return indices, h_global, n_valid
+        return indices
 
-    def _fit(self, x_sub, h_global, n_valid, key_cluster, k,
-             return_centroids=False):
-        """One K over the block's valid lanes, whose subsamples are
-        ``x_sub`` (n_valid, n_sub, d): labels (hb, n_sub) with padding rows
-        -1, or the valid lanes' final centroids."""
-        config = self.config
-        if n_valid == 0:
-            if return_centroids:
-                return x_sub.new_zeros((0, config.k_max, config.n_features))
-            return torch.full((self._hb, config.n_sub), -1,
-                              dtype=torch.int64, device=self.device)
-        keys = resample_lane_keys(config, key_cluster, k, h_global[:n_valid])
-        out = fit_resample_lanes(
-            self.clusterer, config, keys, x_sub, k, config.k_max,
-            return_centroids=return_centroids,
-        )
-        if return_centroids:
-            return out
-        labels = torch.full((self._hb, config.n_sub), -1, dtype=torch.int64,
-                            device=self.device)
-        labels[:n_valid] = out
-        return labels
+    def _lanes(self, on, indices, x, g, h_start, h_total):
+        """Each local shard of k-group ``g``: its valid lanes' subsamples."""
+        geo = self._geo
+        return {c: on(x, c)[on(indices, c)[shard_lanes(geo, c)]
+                            [:valid_lanes(geo, c, h_total, h_start)]]
+                for c in self.mesh.coords()
+                if c[0] == g and self.mesh.is_local(c)}
+
+    def _group_slots(self, g: int):
+        """(local slot, K position, K) of k-group ``g``'s real Ks: a
+        prefix of its slots (the padding repeats sit at the end)."""
+        out = []
+        for j in range(self._k_local):
+            p = g * self._k_local + j
+            if self._orig[p] < self._n_ks:
+                out.append((j, self._orig[p], self._geo.k_values_pad[p]))
+        return out
 
     def _step_dense(self, state, x, x_cols, key_resample, key_cluster,
                     h_start, h_total):
-        config = self.config
+        config, geo, mesh = self.config, self._geo, self.mesh
         n, k_max = config.n_samples, config.k_max
-        indices, h_global, n_valid = self._block_plan(
-            key_resample, h_start, h_total
-        )
-        x_sub = x[indices[:n_valid]]
-        state["iij"] += cosample_counts(indices, n)
-        counts = torch.zeros((self._n_ks, config.bins), dtype=torch.int64,
-                             device=self.device)
-        for i, k in enumerate(config.k_values):
-            labels = self._fit(x_sub, h_global, n_valid, key_cluster, k)
-            state["mij"][i] += coassociation_counts(
-                labels, indices, n, k_max, config.chunk_size
-            )
-            # Curves from the ACCUMULATED counts: the consensus over every
-            # resample so far, at the last block the monolithic input.
-            consensus_hist_from_counts(state["mij"][i], state["iij"], n, 0,
-                                       config.bins, counts[i])
-        return list(counts)
+        on = DeviceCopies(mesh)
+        indices = self._block_plan(key_resample, h_start, h_total)
+        counts = [None] * self._n_ks
+        for g in range(geo.n_k):
+            for r in range(geo.n_r):
+                parts = {c: _cosample(on(indices, c)[row_lanes(geo, c[1])],
+                                      n, geo, r, False)
+                         for c in local_column(mesh, g, r)}
+                state["iij"][(g, r)] += mesh.psum(
+                    parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            x_sub = self._lanes(on, indices, x, g, h_start, h_total)
+            for j, i, k in self._group_slots(g):
+                labels = {c: _shard_labels(self.clusterer, config, geo, c,
+                                           on(key_cluster, c), k, xs,
+                                           h_total, h_start)
+                          for c, xs in x_sub.items()}
+                hist = {}
+                for r in range(geo.n_r):
+                    parts = {}
+                    for c in local_column(mesh, g, r):
+                        row = mesh.all_gather(labels, mesh.axis(c, ROW_AXIS),
+                                              dest=c)
+                        parts[c] = _coassoc(
+                            row, on(indices, c)[row_lanes(geo, c[1])], n,
+                            k_max, config, geo, r, False)
+                    mij = state["mij"][(g, r)][j]
+                    mij += mesh.psum(parts,
+                                     mesh.axis((g, 0, r), RESAMPLE_AXIS))
+                    # Curves from the ACCUMULATED counts: the consensus
+                    # over every resample so far, at the last block the
+                    # monolithic input.
+                    o = mesh.row_owner(g, r)
+                    hist[o] = consensus_hist_from_counts(
+                        mij, state["iij"][(g, r)], n, r * geo.n_local,
+                        config.bins,
+                        torch.zeros(config.bins, dtype=torch.int64,
+                                    device=mesh.device(o)))
+                counts[i] = mesh.psum(
+                    hist, mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
+                ).to(self.device)
+        return counts
 
     def _step_packed(self, state, x, x_cols, key_resample, key_cluster,
                      h_start, h_total):
-        config = self.config
-        n, k_max, wb = config.n_samples, config.k_max, self._wb
-        indices, h_global, n_valid = self._block_plan(
-            key_resample, h_start, h_total
-        )
-        x_sub = x[indices[:n_valid]]
+        config, geo, mesh = self.config, self._geo, self.mesh
+        k_max, wb, nlp = config.k_max, self._wb, self._n_local_pack
+        on = DeviceCopies(mesh)
+        indices = self._block_plan(key_resample, h_start, h_total)
         word0 = (h_start // self._hb) * wb
-        blk_coplanes = pack_cosample_planes(
-            indices, self._n_pad2, n_words=wb, row0=0
-        )
-        coplanes = state["coplanes"]
-        coplanes[word0:word0 + wb] = blk_coplanes
-        for i, k in enumerate(config.k_values):
-            if self.fuse_block == "fused":
-                cents = self._fit(x_sub, h_global, n_valid, key_cluster, k,
-                                  return_centroids=True)
-                blk = fused_assign_pack(x_cols, cents, k, blk_coplanes, 0,
-                                        n_words=wb)
-            else:
-                labels = self._fit(x_sub, h_global, n_valid, key_cluster, k)
-                blk = pack_label_planes(labels, indices, k_max, self._n_pad2,
-                                        n_words=wb, row0=0)
-            state["planes"][i, :, word0:word0 + wb] = blk
-        # The evaluation, per row tile: one (tile_r, n_pad2) Iij tile, then
-        # every K's Mij tile from its planes, histogrammed through its Cij
-        # (formed in the kernel's registers) and dropped: the only int32
-        # counts that ever exist in the packed step.
-        words = state["planes"].reshape(self._n_ks, k_max * self._w_cap,
-                                        self._n_pad2)
-        return list(packed_hist_counts(words, coplanes, config.bins,
-                                       self._tile_r, n_valid=n))
+        counts = [None] * self._n_ks
+        for g in range(geo.n_k):
+            # Each shard's 'h' row's plan in its own element columns, and
+            # the bit offset of that row's first resample in the block.
+            cols, my_cop = {}, {}
+            for r in range(geo.n_r):
+                parts = {}
+                for c in local_column(mesh, g, r):
+                    rows = on(indices, c)[row_lanes(geo, c[1])]
+                    lo = r * nlp
+                    cols[c] = torch.where((rows >= lo) & (rows < lo + nlp),
+                                          rows - lo, -1)
+                    my_cop[c] = parts[c] = pack_cosample_planes(
+                        cols[c], nlp, n_words=wb,
+                        row0=row_lanes(geo, c[1]).start)
+                state["coplanes"][(g, r)][word0:word0 + wb] = mesh.psum(
+                    parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            x_sub = self._lanes(on, indices, x, g, h_start, h_total)
+            slots = self._group_slots(g)
+            for j, _, k in slots:
+                if self.fuse_block == "fused":
+                    cents = {c: _shard_centroids(self.clusterer, config, geo,
+                                                 c, on(key_cluster, c), k,
+                                                 xs, h_start)
+                             for c, xs in x_sub.items()}
+                else:
+                    labels = {c: _shard_labels(self.clusterer, config, geo,
+                                               c, on(key_cluster, c), k, xs,
+                                               h_total, h_start)
+                              for c, xs in x_sub.items()}
+                for r in range(geo.n_r):
+                    parts = {}
+                    for c in local_column(mesh, g, r):
+                        g0 = row_lanes(geo, c[1]).start
+                        if self.fuse_block == "fused":
+                            row = mesh.all_gather(
+                                cents, mesh.axis(c, ROW_AXIS), dest=c)
+                            parts[c] = fused_assign_pack(
+                                x_cols[c], row, k, my_cop[c], g0,
+                                n_words=wb)
+                        else:
+                            row = mesh.all_gather(
+                                labels, mesh.axis(c, ROW_AXIS), dest=c)
+                            parts[c] = pack_label_planes(
+                                row, cols[c], k_max, nlp, n_words=wb,
+                                row0=g0)
+                    state["planes"][(g, r)][j, :, word0:word0 + wb] = (
+                        mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS)))
+            # The evaluation, per row tile of each row shard: one Iij tile,
+            # then every K's Mij tile from its planes, histogrammed through
+            # its Cij (formed in the kernel's registers) and dropped: the
+            # only int32 counts that ever exist in the packed step.
+            hist = {}
+            for r in range(geo.n_r):
+                o = mesh.row_owner(g, r)
+                axis = mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
+                planes = mesh.all_gather(
+                    {mesh.row_owner(g, rr): state["planes"][(g, rr)]
+                     for rr in range(geo.n_r)}, axis, dim=3, dest=o)
+                cop = mesh.all_gather(
+                    {mesh.row_owner(g, rr): state["coplanes"][(g, rr)]
+                     for rr in range(geo.n_r)}, axis, dim=1, dest=o)
+                words = planes[:len(slots)].reshape(
+                    len(slots), k_max * self._w_cap, self._n_pad2)
+                hist[o] = packed_hist_counts(
+                    words, cop, config.bins, self._tile_r,
+                    n_valid=config.n_samples, rows=(r * nlp, (r + 1) * nlp))
+            merged = mesh.psum(
+                hist, mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
+            ).to(self.device)
+            for (_, i, _), row in zip(slots, merged):
+                counts[i] = row
+        return counts
 
-    def columns(self, x: torch.Tensor) -> Optional[torch.Tensor]:
-        """The fused step's (n_pad2, d) float32 element rows: element j at
+    def columns(self, x: torch.Tensor):
+        """The fused step's element rows of each local shard: ``{coord:
+        (n_local_pack, d) float32}``, element j of the shard's columns at
         row j, zero pad rows (they carry no co-sample bits, so their
         in-kernel labels are never used).  None for the other steps."""
         if self.fuse_block != "fused":
             return None
-        x_cols = torch.zeros((self._n_pad2, self.config.n_features),
-                             dtype=torch.float32, device=self.device)
-        x_cols[:self.config.n_samples] = x
-        return x_cols
+        config, nlp = self.config, self._n_local_pack
+        full = torch.zeros((self._n_pad2, config.n_features),
+                           dtype=torch.float32, device=self.device)
+        full[:config.n_samples] = x
+        blocks = [full[r * nlp:(r + 1) * nlp] for r in range(self._geo.n_r)]
+        on = DeviceCopies(self.mesh)
+        return {c: on(blocks[c[2]], c)
+                for c in self.mesh.coords() if self.mesh.is_local(c)}
 
     def step(self, state, x, key, h_start: int, h_total: int, x_cols=None):
         """One block: updates ``state`` in place, returns the per-K
@@ -333,83 +537,89 @@ class StreamingSweep:
     def finalize(self, state) -> Dict[str, torch.Tensor]:
         """Mij (nK, N, N), Iij and Cij from the final state; in packed mode
         the popcount of the full planes, its only full materialisation."""
+        flat = self.gather_state(state)
         n = self.config.n_samples
         if self._packed:
-            k_max = self.config.k_max
-            cop = state["coplanes"]
+            cop = flat["coplanes"]
             iij = packed_coassoc_counts(cop, cop)[:n, :n]
-            mij = []
-            for planes in state["planes"]:
-                words = planes.reshape(k_max * self._w_cap, self._n_pad2)
-                mij.append(packed_coassoc_counts(words, words)[:n, :n])
-            mij = torch.stack(mij)
+            mij = torch.stack([
+                packed_coassoc_counts(p.reshape(-1, cop.shape[1]),
+                                      p.reshape(-1, cop.shape[1]))[:n, :n]
+                for p in flat["planes"]])
         else:
-            mij, iij = state["mij"], state["iij"]
+            mij, iij = flat["mij"], flat["iij"]
         cij = torch.stack([consensus_matrix(m, iij) for m in mij])
         return {"mij": mij, "iij": iij, "cij": cij}
 
     # -- resilience ------------------------------------------------------
 
-    def _state_shapes(self) -> Dict[str, Tuple[int, ...]]:
+    def _frame_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The shapes of :meth:`gather_state`, which the frames hold."""
         n, n_ks, k_max = self.config.n_samples, self._n_ks, self.config.k_max
         if self._packed:
-            return {"planes": (n_ks, k_max, self._w_cap, self._n_pad2),
-                    "coplanes": (self._w_cap, self._n_pad2)}
+            width = self._frame_width()
+            return {"planes": (n_ks, k_max, self._w_cap, width),
+                    "coplanes": (self._w_cap, width)}
         return {"mij": (n_ks, n, n), "iij": (n, n)}
 
-    def _integrity_stats(self, state, h_seen: int, block: int):
-        """The invariant sentinel on ``state`` (the packed one on packed
-        state, whose spot rows launch kernel B3 on the card): per-invariant
-        violation counts, all zero for a valid state."""
+    def _integrity_stats(self, flat, h_seen: int, block: int):
+        """The invariant sentinel on :meth:`gather_state`'s ``flat`` state
+        (the packed one on packed state, whose spot rows launch kernel B3
+        on the card): per-invariant violation counts, all zero for a valid
+        state."""
         if self._sentinel is None:
             self._sentinel = (
                 build_packed_sentinel(self._hb, self.config.k_max)
                 if self._packed else build_sentinel()
             )
         idx = sentinel_sample_rows(self.config.n_samples, block)
-        return self._sentinel(state, h_seen, idx)
+        return self._sentinel(flat, h_seen, idx)
 
     def _flip_state_bits(self, state, nbits: int, block: int,
                          h_seen: int) -> None:
         """The ``accumulator`` bitflip fault, in place: the live region of
         the per-K accumulator (dense ``mij``; packed: the planes' words of
-        the blocks run and the real N columns) goes to the host, gets
+        the blocks run) goes to the host, gets
         :func:`..resilience.integrity.flip_array_bits` with the block as
         seed, and is written back.  Reached only when a plan armed it."""
+        name = "planes" if self._packed else "mij"
+        value = self.gather_state(state)[name].clone()
+        live = value
         if self._packed:
-            w_used = -(-h_seen // self._hb) * self._wb
-            live = state["planes"][:, :, :w_used, :self.config.n_samples]
-        else:
-            live = state["mij"]
+            live = value[:, :, :-(-h_seen // self._hb) * self._wb,
+                         :self.config.n_samples]
         host = live.cpu().numpy().copy()
         flip_array_bits(host, nbits, seed=block)
         live.copy_(torch.from_numpy(host))
+        self._load_state(state, {name: value})
 
     def _host_snapshot(self, state) -> Dict[str, np.ndarray]:
-        """A host copy of the state for the ring, taken before the next
-        block updates it in place; packed planes as uint32 views of their
-        int32 bit patterns, the reference's frame dtype."""
+        """A host copy of :meth:`gather_state` for the ring, taken before
+        the next block updates the state in place; packed planes as uint32
+        views of their int32 bit patterns, the reference's frame dtype."""
         out = {}
-        for name, value in state.items():
+        for name, value in self.gather_state(state).items():
             host = value.to("cpu", copy=True).numpy()
             out[f"state_{name}"] = host.view(np.uint32) if self._packed \
                 else host
         return out
 
-    def _restore(self, arrays) -> Dict[str, torch.Tensor]:
-        state = {}
-        for name in self._state_shapes():
+    def _restore(self, arrays):
+        state = self.init_state()
+        flat = {}
+        for name in self._frame_shapes():
             host = np.ascontiguousarray(arrays[f"state_{name}"])
             if host.dtype == np.uint32:
                 host = host.view(np.int32)
-            state[name] = torch.from_numpy(host).to(self.device)
+            flat[name] = torch.from_numpy(host).to(self.device)
+        self._load_state(state, flat)
         return state
 
     def _verify_frame(self, header, arrays) -> Optional[str]:
         """:func:`..resilience.integrity.verify_state_frame`, after the
         state's shapes are checked against this engine's (a packed ring
         from an engine of another capacity has other word counts)."""
-        for name, shape in self._state_shapes().items():
+        for name, shape in self._frame_shapes().items():
             got = arrays.get(f"state_{name}")
             if got is None or tuple(got.shape) != shape:
                 return (f"state_{name} is not a {shape} array for this "
@@ -537,6 +747,18 @@ class StreamingSweep:
             resume = checkpointer.latest(ckpt_fp, verify=self._verify_frame)
             if resume is not None:
                 header, arrays = resume
+                terminal = (bool(header.get("stopped", False))
+                            or int(header["h_done"]) >= n_iterations)
+                if not terminal and int(header.get("hb_pad", self._hb)) \
+                        != self._hb:
+                    raise ValueError(
+                        f"checkpoint frame written with padded blocks of "
+                        f"{header.get('hb_pad')} resamples does not align "
+                        f"with this engine's {self._hb} (stream_h_block "
+                        "padded over the mesh's ('h' x 'n') shards): "
+                        "resume on a mesh with the same padded block, or "
+                        "point the run at a fresh checkpoint ring"
+                    )
                 state = self._restore(arrays)
                 # float32, as the live run's PAC: the adaptive comparison
                 # must not widen to f64 on the resumed path only.
@@ -586,7 +808,8 @@ class StreamingSweep:
                         torch.cuda.synchronize(device)
                     t_check = time.perf_counter()
                     integrity_checks += 1
-                    found = self._integrity_stats(state, h_done, b)
+                    found = self._integrity_stats(self.gather_state(state),
+                                                  h_done, b)
                     seconds["integrity"] += time.perf_counter() - t_check
                     bad = {name: v for name, v in found.items() if v}
                     if bad:
@@ -651,12 +874,14 @@ class StreamingSweep:
         if capture_state and not stopped_early:
             w_used = -(-h_effective // self._hb) * self._wb
             n = config.n_samples
+            flat = self.gather_state(state)
             out["final_state"] = {
-                "planes": state["planes"][:, :, :w_used, :n].cpu().numpy(),
-                "coplanes": state["coplanes"][:w_used, :n].cpu().numpy(),
+                "planes": flat["planes"][:, :, :w_used, :n].cpu().numpy(),
+                "coplanes": flat["coplanes"][:w_used, :n].cpu().numpy(),
             }
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        for dev in self.mesh.local_devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         run_seconds = time.perf_counter() - t0
         del state
         out["streaming"] = {
@@ -690,7 +915,9 @@ class StreamingSweep:
             ),
             "device": torch.cuda.get_device_name(device) if on_cuda else "cpu",
             "device_memory": device_memory_stats(device) if on_cuda else {},
+            "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
+            "mesh": dict(self.mesh.shape),
         }
         if self.packed_kernel is not None:
             out["timing"]["packed_kernel"] = self.packed_kernel
@@ -764,6 +991,18 @@ class StreamingSweep:
         ]
 
 
+def _to_width(words: torch.Tensor, width: int) -> torch.Tensor:
+    """``words`` with its last (element) axis cut or zero-padded to
+    ``width``: the same tensor when it has that width already."""
+    have = words.shape[-1]
+    if have == width:
+        return words
+    if have > width:
+        return words[..., :width]
+    pad = words.new_zeros(words.shape[:-1] + (width - have,))
+    return torch.cat([words, pad], dim=-1)
+
+
 def run_streaming_sweep(
     clusterer: Clusterer,
     config: SweepConfig,
@@ -772,12 +1011,14 @@ def run_streaming_sweep(
     device=None,
     block_callback=None,
     checkpointer: Optional[StreamCheckpointer] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Build the engine, build the kernels and stream ``config``'s H: the
     counterpart of :func:`..parallel.sweep.run_sweep`, whose ``timing``
     adds ``compile_seconds`` (building the kernels).  ``checkpointer``
-    makes the run resumable (:meth:`StreamingSweep.run`)."""
-    engine = StreamingSweep(clusterer, config, device=device)
+    makes the run resumable (:meth:`StreamingSweep.run`); ``mesh`` (or
+    ``device``) is where it runs."""
+    engine = StreamingSweep(clusterer, config, mesh=mesh, device=device)
     compile_seconds = engine.warmup()
     out = engine.run(x, seed, config.n_iterations,
                      block_callback=block_callback,

@@ -1,6 +1,6 @@
-"""The dense K sweep on one device: resample -> cluster -> count -> analyse.
+"""The K sweep: resample -> cluster -> count -> analyse, on a mesh.
 
-The port of the reference package's ``parallel/sweep.py`` for one device:
+The port of the reference package's ``parallel/sweep.py``:
 
 - the resample plan is drawn once from ``split(PRNGKey(seed))[0]`` and is
   shared by every K (so Iij is computed once);
@@ -10,7 +10,11 @@ The port of the reference package's ``parallel/sweep.py`` for one device:
   (the kernel of :mod:`..ops.hist` on the card) and the curves follow;
 - ``pac_area`` is re-derived from the assembled CDF, as the reference does;
 - with ``accum_repr="packed"`` Mij and Iij come from bit-planes through the
-  popcount kernel (:mod:`..ops.popcount`), the same counts bit for bit.
+  popcount kernel (:mod:`..ops.popcount`), the same counts bit for bit;
+- on a ('k', 'h', 'n') mesh (:mod:`.mesh`; default one device, the
+  1 x 1 x 1 mesh, which is the single-device path) the lanes, row blocks
+  and K values split over the shards by :func:`sweep_geometry`, and every
+  mesh gives the one-device result bit for bit (:func:`build_sweep`).
 
 Where the reference compiles one program, this runs eagerly; the Lloyd loop
 checks on the host after each step whether any lane is still running.
@@ -18,15 +22,16 @@ checks on the host after each step whether any lane is still running.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
-from consensus_clustering_tpu_torch.device import resolve_device
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
 from consensus_clustering_tpu_torch.ops import _build, launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import (
@@ -44,10 +49,19 @@ from consensus_clustering_tpu_torch.ops.resample import (
     cosample_counts,
     resample_indices,
 )
+from consensus_clustering_tpu_torch.parallel.mesh import (
+    KSHARD_AXIS,
+    RESAMPLE_AXIS,
+    ROW_AXIS,
+    Mesh,
+    engine_mesh,
+)
 from consensus_clustering_tpu_torch.utils.metrics import (
     device_memory_stats,
     peak_memory_window,
 )
+
+logger = logging.getLogger(__name__)
 
 #: The CUDA sources every sweep builds before it runs on the card.
 KERNELS = ("hist", "lloyd", "popcount", "fused_block")
@@ -147,73 +161,323 @@ def curves_from_counts(
             "pac_area": cdf[:, hi - 1] - cdf[:, lo]}
 
 
+class SweepGeometry(NamedTuple):
+    """The mesh geometry of a sweep (reference ``SweepGeometry``): N padded
+    to ``n_pad = n_local * n_r`` rows over 'n', the H rows of a program
+    (the whole plan, or a stream's block) padded to ``h_pad`` over the
+    ('h' x 'n') shards with ``local_h`` lanes each (padded rows are -1),
+    and the K list padded to a multiple of the k-groups with repeats of
+    its last K, optionally laid out round-robin (``k_unperm`` maps each K
+    position to its row in the padded, permuted list).  One
+    implementation for every engine: their bit parity rests on it."""
+
+    n_h: int
+    n_r: int
+    n_k: int
+    n_local: int
+    n_pad: int
+    h_pad: int
+    local_h: int
+    n_ks: int
+    k_values_pad: Tuple[int, ...]
+    k_unperm: Optional[np.ndarray]
+
+    def k_original(self) -> List[int]:
+        """The K position of each row of ``k_values_pad`` (>= ``n_ks``:
+        padding)."""
+        if self.k_unperm is None:
+            return list(range(len(self.k_values_pad)))
+        return [int(i) for i in np.argsort(self.k_unperm)]
+
+
+def sweep_geometry(config: SweepConfig, mesh: Mesh,
+                   h_rows: int) -> SweepGeometry:
+    """:class:`SweepGeometry` for ``h_rows`` resample rows on ``mesh``
+    (``config.n_iterations`` for the monolithic sweep, the block size for
+    the streaming engines); the reference's arithmetic, with its warning
+    when ``cluster_batch`` no longer splits a shard's lanes."""
+    n_h = mesh.shape[RESAMPLE_AXIS]
+    n_r = mesh.shape[ROW_AXIS]
+    n_k = mesh.shape[KSHARD_AXIS]
+    n = config.n_samples
+    n_local = -(-n // n_r)
+    n_pad = n_local * n_r
+    h_pad = -(-h_rows // (n_h * n_r)) * (n_h * n_r)
+    local_h = h_pad // (n_h * n_r)
+    # cluster_batch applies to each device's LOCAL lanes: a value tuned
+    # on one layout silently stops sub-batching on a wider mesh.
+    if (config.cluster_batch is not None
+            and config.cluster_batch >= local_h):
+        logger.warning(
+            "cluster_batch=%d >= the per-device resample shard (%d of "
+            "%d rows over %d devices): sub-batching is a no-op on this "
+            "mesh layout, equivalent to cluster_batch=None; re-tune at "
+            "the deployment mesh (SweepConfig.cluster_batch docs)",
+            config.cluster_batch, local_h, h_rows, n_h * n_r,
+        )
+    n_ks = len(config.k_values)
+    k_local = -(-n_ks // n_k)
+    k_values_pad = tuple(config.k_values) + (config.k_values[-1],) * (
+        k_local * n_k - n_ks
+    )
+    # Round-robin: group g runs k_values_pad[g::n_k].
+    if config.k_interleave and n_k > 1:
+        perm = [g + j * n_k for g in range(n_k) for j in range(k_local)]
+        k_values_pad = tuple(k_values_pad[i] for i in perm)
+        k_unperm = np.argsort(np.asarray(perm))
+    else:
+        k_unperm = None
+    return SweepGeometry(
+        n_h=n_h, n_r=n_r, n_k=n_k, n_local=n_local, n_pad=n_pad,
+        h_pad=h_pad, local_h=local_h, n_ks=n_ks,
+        k_values_pad=k_values_pad, k_unperm=k_unperm,
+    )
+
+
+def shard_lanes(geo: SweepGeometry, coord) -> slice:
+    """The rows of a (padded) plan that shard ``coord`` clusters: global
+    rows are blocked 'h'-major, then 'n'."""
+    start = (coord[1] * geo.n_r + coord[2]) * geo.local_h
+    return slice(start, start + geo.local_h)
+
+
+def row_lanes(geo: SweepGeometry, h: int) -> slice:
+    """The rows of 'h' row ``h``: its ``n_r`` shards' lanes in order."""
+    start = h * geo.n_r * geo.local_h
+    return slice(start, start + geo.n_r * geo.local_h)
+
+
+def valid_lanes(geo: SweepGeometry, coord, h_total: int,
+                h_start: int = 0) -> int:
+    """How many of shard ``coord``'s lanes are real resamples (global id <
+    ``h_total``); the rest are padding, which is never clustered."""
+    first = h_start + shard_lanes(geo, coord).start
+    return max(0, min(geo.local_h, h_total - first))
+
+
+def lane_ids(geo: SweepGeometry, coord, h_start: int,
+             device) -> torch.Tensor:
+    """The global resample ids of shard ``coord``'s lanes (int64)."""
+    lanes = shard_lanes(geo, coord)
+    return h_start + torch.arange(lanes.start, lanes.stop, dtype=torch.int64,
+                                  device=device)
+
+
+def padded_plan(indices: torch.Tensor, h_pad: int) -> torch.Tensor:
+    """The plan with rows up to ``h_pad`` appended as -1 (padding)."""
+    pad = h_pad - indices.shape[0]
+    if pad <= 0:
+        return indices
+    return torch.cat([indices, indices.new_full((pad, indices.shape[1]),
+                                                -1)])
+
+
+def local_column(mesh: Mesh, g: int, r: int):
+    """This process's shards of the 'h' column (g, ., r)."""
+    return [c for c in mesh.axis((g, 0, r), RESAMPLE_AXIS)
+            if mesh.is_local(c)]
+
+
+class DeviceCopies:
+    """Copies of the inputs every shard reads (the data, the plan, the
+    keys) on each distinct device of a mesh, made once per run:
+    ``copies(t, coord)`` is ``t`` on ``coord``'s device.  A virtual mesh
+    makes no copy."""
+
+    def __init__(self, mesh: Mesh):
+        self._mesh = mesh
+        # (id, device) -> (source, copy): the source is held so that its
+        # id is not reused while the copy is cached.
+        self._made: Dict[Tuple[int, str], Tuple[torch.Tensor,
+                                                torch.Tensor]] = {}
+
+    def __call__(self, t: torch.Tensor, coord) -> torch.Tensor:
+        dev = self._mesh.device(coord)
+        if t.device == dev:
+            return t
+        key = (id(t), str(dev))
+        if key not in self._made:
+            self._made[key] = (t, t.to(dev, non_blocking=True))
+        return self._made[key][1]
+
+
 def build_sweep(
     clusterer: Clusterer, config: SweepConfig, device=None,
     progress_callback: Optional[Callable[[int, float], None]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Return ``sweep(x, key) -> dict`` on ``device`` (default ``cuda``).
+    """Return ``sweep(x, key) -> dict`` on ``mesh`` (default: the one
+    device ``device``, ``cuda`` unless named).
 
     The dict holds, stacked over ``config.k_values``: ``pac_area`` (nK,),
     ``hist`` and ``cdf`` (nK, bins), and with ``store_matrices`` also
-    ``iij`` (N, N) and ``mij``/``cij`` (nK, N, N).
+    ``iij`` (N, N) and ``mij``/``cij`` (nK, N, N), on the mesh's primary
+    device.
 
-    ``progress_callback(k, pac)``, if given, is called once per K, in K
-    order, as soon as that K's curves exist, with the PAC the result
-    reports (the same arithmetic on that K's row); each call reads one
-    value from the device.  Without it the sweep adds no work.
+    On a mesh (reference ``build_sweep``'s ``local_body``): shard (g, h,
+    r) clusters lanes ``(h * n_r + r) * local_h ...`` of the (padded) plan
+    for its k-group's Ks, keyed by the global resample id; the labels are
+    gathered along 'n', each shard counts the (n_local, n_pad) row block
+    ``r`` of Mij and Iij over its 'h' row's resamples, the blocks are
+    summed over 'h', B1 bins each row block at ``row_offset = r *
+    n_local`` and the counts are summed over 'n'.  The per-K rows are
+    un-permuted, K padding cropped, and the curves derived from the
+    assembled counts, so every mesh gives the one-device result bit for
+    bit.  Shards run one after another from this thread.
+
+    ``progress_callback(k, pac)``, if given, is called once per K as soon
+    as that K's curves exist (in K order without a 'k' axis, else in the
+    order the k-groups run them), with the PAC the result reports; each
+    call reads one value from the device.  Without it the sweep adds no
+    work.
     """
-    device = resolve_device(device)
+    mesh = engine_mesh(mesh, device)
+    geo = sweep_geometry(config, mesh, config.n_iterations)
     n = config.n_samples
     h_total = config.n_iterations
     k_max = config.k_max
     dtype = config.torch_dtype
     packed = config.accum_repr == "packed"
+    k_local = len(geo.k_values_pad) // geo.n_k
+    orig = geo.k_original()
 
     def sweep(x: torch.Tensor, key: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x.to(device=device, dtype=dtype)
-        pair = rng.split(key.to(device))
+        on = DeviceCopies(mesh)
+
+        def primary(t):
+            return t.to(mesh.primary, non_blocking=True)
+
+        x = primary(x.to(dtype=dtype))
+        pair = rng.split(key.to(mesh.primary))
         key_resample, key_cluster = pair[0], pair[1]
-        indices = resample_indices(key_resample, n, h_total, config.n_sub)
-        if packed:
-            iij = cosample_counts_packed(
-                indices, n, popcount_fn=packed_coassoc_counts
-            )
-        else:
-            iij = cosample_counts(indices, n)
-        x_sub = x[indices]
-        h_global = torch.arange(h_total, dtype=torch.int64, device=device)
-        counts, mijs, cijs = [], [], []
-        for k in config.k_values:
-            keys = resample_lane_keys(config, key_cluster, k, h_global)
-            labels = fit_resample_lanes(
-                clusterer, config, keys, x_sub, k, k_max
-            )
-            if packed:
-                mij = coassoc_counts_packed(
-                    labels, indices, n, k_max,
-                    popcount_fn=packed_coassoc_counts,
-                )
-            else:
-                mij = coassociation_counts(
-                    labels, indices, n, k_max, config.chunk_size
-                )
-            cij = consensus_matrix(mij, iij)
-            counts.append(consensus_hist_counts(cij, n, 0, config.bins))
-            if progress_callback is not None:
-                pac = curves_from_counts(config, counts[-1:])["pac_area"]
-                progress_callback(int(k), float(pac[0]))
-            if config.store_matrices:
-                mijs.append(mij)
-                cijs.append(cij)
-        out = curves_from_counts(config, counts)
+        indices = padded_plan(
+            resample_indices(key_resample, n, h_total, config.n_sub),
+            geo.h_pad)
+        counts: Dict[int, torch.Tensor] = {}
+        mijs: Dict[int, torch.Tensor] = {}
+        iij_rows = None
+        for g in range(geo.n_k):
+            iij = {}
+            for r in range(geo.n_r):
+                parts = {}
+                for c in local_column(mesh, g, r):
+                    rows = on(indices, c)[row_lanes(geo, c[1])]
+                    parts[c] = _cosample(rows, n, geo, r, packed)
+                iij[r] = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            if iij_rows is None:
+                iij_rows = iij
+            shards = [c for c in mesh.coords() if c[0] == g
+                      and mesh.is_local(c)]
+            x_sub = {c: on(x, c)[on(indices, c)[shard_lanes(geo, c)]
+                                  [:valid_lanes(geo, c, h_total)]]
+                     for c in shards}
+            for p in range(g * k_local, (g + 1) * k_local):
+                if orig[p] >= geo.n_ks:
+                    continue  # K padding: a repeat of the last K
+                k = geo.k_values_pad[p]
+                labels = {c: _shard_labels(clusterer, config, geo, c,
+                                           on(key_cluster, c), k, x_sub[c],
+                                           h_total)
+                          for c in shards}
+                owner_hist = {}
+                mij_rows = {}
+                for r in range(geo.n_r):
+                    parts = {}
+                    for c in local_column(mesh, g, r):
+                        row = mesh.all_gather(
+                            labels, mesh.axis(c, ROW_AXIS), dest=c)
+                        rows = on(indices, c)[row_lanes(geo, c[1])]
+                        parts[c] = _coassoc(row, rows, n, k_max, config,
+                                            geo, r, packed)
+                    mij = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+                    o = mesh.row_owner(g, r)
+                    cij = consensus_matrix(mij, iij[r],
+                                           row_offset=r * geo.n_local)
+                    owner_hist[o] = consensus_hist_counts(
+                        cij, n, r * geo.n_local, config.bins)
+                    if config.store_matrices:
+                        mij_rows[o] = mij
+                hist_axis = mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
+                counts[orig[p]] = primary(mesh.psum(owner_hist, hist_axis))
+                if progress_callback is not None:
+                    pac = curves_from_counts(
+                        config, [counts[orig[p]]])["pac_area"]
+                    progress_callback(int(k), float(pac[0]))
+                if config.store_matrices:
+                    mijs[orig[p]] = primary(mesh.all_gather(
+                        mij_rows, hist_axis))[:n, :n]
+        out = curves_from_counts(config,
+                                 [counts[i] for i in range(geo.n_ks)])
         if config.store_matrices:
-            out["iij"] = iij
-            out["mij"] = torch.stack(mijs)
-            out["cij"] = torch.stack(cijs)
+            owners = {mesh.row_owner(0, r): iij_rows[r]
+                      for r in range(geo.n_r)}
+            iij_full = primary(mesh.all_gather(
+                owners, mesh.axis(mesh.row_owner(0, 0), ROW_AXIS)))[:n, :n]
+            out["iij"] = iij_full
+            out["mij"] = torch.stack([mijs[i] for i in range(geo.n_ks)])
+            out["cij"] = torch.stack([consensus_matrix(m, iij_full)
+                                      for m in out["mij"]])
         return out
 
-    sweep.device = device
+    sweep.device = mesh.primary
+    sweep.mesh = mesh
     return sweep
+
+
+def _row_block(geo: SweepGeometry, r: int) -> Dict[str, int]:
+    """The row-block arguments of the count builders for row shard ``r``
+    (none on a mesh without an 'n' axis: the whole matrix)."""
+    if geo.n_r == 1:
+        return {}
+    return {"n_cols": geo.n_pad, "row_start": r * geo.n_local,
+            "n_rows": geo.n_local}
+
+
+def _cosample(rows, n, geo, r, packed):
+    if packed:
+        return cosample_counts_packed(rows, n, popcount_fn=packed_coassoc_counts,
+                                      **_row_block(geo, r))
+    return cosample_counts(rows, n, **_row_block(geo, r))
+
+
+def _coassoc(labels, rows, n, k_max, config, geo, r, packed):
+    if packed:
+        return coassoc_counts_packed(labels, rows, n, k_max,
+                                     popcount_fn=packed_coassoc_counts,
+                                     **_row_block(geo, r))
+    return coassociation_counts(labels, rows, n, k_max, config.chunk_size,
+                                **_row_block(geo, r))
+
+
+def _shard_centroids(clusterer, config, geo, coord, key_cluster, k, x_sub,
+                     h_start: int = 0):
+    """(valid lanes, k_max, d) final centroids of shard ``coord``'s valid
+    lanes for one K (the fused block step's input)."""
+    nv = x_sub.shape[0]
+    if nv == 0:
+        return x_sub.new_zeros((0, config.k_max, config.n_features))
+    keys = resample_lane_keys(config, key_cluster, k,
+                              lane_ids(geo, coord, h_start,
+                                       x_sub.device)[:nv])
+    return fit_resample_lanes(clusterer, config, keys, x_sub, k,
+                              config.k_max, return_centroids=True)
+
+
+def _shard_labels(clusterer, config, geo, coord, key_cluster, k, x_sub,
+                  h_total, h_start: int = 0):
+    """(local_h, n_sub) labels of shard ``coord``'s lanes for one K, -1 on
+    its padded lanes (which are not clustered: a lane's labels are a pure
+    function of its key and subsample)."""
+    dev = x_sub.device
+    labels = torch.full((geo.local_h, config.n_sub), -1, dtype=torch.int64,
+                        device=dev)
+    nv = x_sub.shape[0]
+    if nv:
+        keys = resample_lane_keys(config, key_cluster, k,
+                                  lane_ids(geo, coord, h_start, dev)[:nv])
+        labels[:nv] = fit_resample_lanes(clusterer, config, keys, x_sub, k,
+                                         config.k_max)
+    return labels
 
 
 def run_sweep(
@@ -223,31 +487,38 @@ def run_sweep(
     seed: int,
     device=None,
     progress_callback: Optional[Callable[[int, float], None]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Run a sweep; return host (numpy) results plus a ``timing`` block
-    (``progress_callback``: see :func:`build_sweep`).
+    (``progress_callback`` and ``mesh``: see :func:`build_sweep`).
 
     ``timing``: ``compile_seconds`` (building the CUDA kernels; 0 when
     already built or on the CPU), ``run_seconds`` (wall clock until every
     result is on the host, after ``torch.cuda.synchronize()``),
     ``resamples_per_second`` (H x nK / run_seconds), ``device_memory``
-    (peak allocator bytes of this run; {} on the CPU),
-    ``kernel_launches`` (launches of each kernel in this run) and, for a
-    packed sweep, ``packed_kernel`` (``cuda`` or ``plain``).
+    (peak allocator bytes of this run on the primary device; {} on the
+    CPU), ``device_memory_per_device`` (the same for each distinct device
+    of the mesh), ``kernel_launches`` (launches of each kernel in this
+    run), ``mesh`` (its axis sizes) and, for a packed sweep,
+    ``packed_kernel`` (``cuda`` or ``plain``).
     """
-    sweep = build_sweep(clusterer, config, device, progress_callback)
-    device = sweep.device
+    sweep = build_sweep(clusterer, config, device, progress_callback, mesh)
+    mesh = sweep.mesh
+    device = mesh.primary
     on_cuda = device.type == "cuda"
     compile_seconds = build_kernels(device)
     x_dev = torch.as_tensor(np.asarray(x)).to(device)
     key = rng.prng_key(seed, device)
-    with peak_memory_window(device):
+    with contextlib.ExitStack() as windows:
+        for dev in mesh.local_devices:
+            windows.enter_context(peak_memory_window(dev))
         launches0 = launch_counts()
         r0 = time.perf_counter()
         out = sweep(x_dev, key)
         host = {name: value.cpu().numpy() for name, value in out.items()}
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        for dev in mesh.local_devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         run_seconds = time.perf_counter() - r0
         total = config.n_iterations * len(config.k_values)
         host["timing"] = {
@@ -258,8 +529,17 @@ def run_sweep(
                 torch.cuda.get_device_name(device) if on_cuda else "cpu"
             ),
             "device_memory": device_memory_stats(device) if on_cuda else {},
+            "device_memory_per_device": per_device_memory(mesh),
             "kernel_launches": launches_since(launches0),
+            "mesh": dict(mesh.shape),
         }
         if config.accum_repr == "packed":
             host["timing"]["packed_kernel"] = kernel_route(device)
         return host
+
+
+def per_device_memory(mesh: Mesh) -> Dict[str, Dict[str, int]]:
+    """Allocator statistics of each distinct CUDA device of ``mesh`` this
+    process holds ({} on the CPU)."""
+    return {str(dev): device_memory_stats(dev)
+            for dev in mesh.local_devices if dev.type == "cuda"}

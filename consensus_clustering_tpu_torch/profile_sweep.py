@@ -103,7 +103,7 @@ _STAGES = {
     "stream": (
         (streaming, "resample_indices", "plan"),
         (streaming, "pack_cosample_planes", "coplanes"),
-        (streaming, "fit_resample_lanes", "cluster"),
+        (sweep, "fit_resample_lanes", "cluster"),
         *_CLUSTER_STAGES,
         (streaming, "fused_assign_pack", "pack (B4)"),
         (streaming, "pack_label_planes", "pack (unfused)"),
@@ -346,7 +346,7 @@ def _estimate(km, args, smi):
     stages = (
         (engine, "resample_indices", "plan"),
         (engine.PairConsensusEngine, "_iij_increment", "iij at the pairs"),
-        (engine, "fit_resample_lanes", "cluster"),
+        (sweep, "fit_resample_lanes", "cluster"),
         *_CLUSTER_STAGES,
         (engine.PairConsensusEngine, "_mij_increment", "mij at the pairs"),
         (engine, "masked_histogram_counts", "pair histogram"),

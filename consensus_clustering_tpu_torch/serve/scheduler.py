@@ -1,4 +1,4 @@
-# Ported from consensus_clustering_tpu/serve/scheduler.py; two edits: the job fingerprint and _device_count.
+# Ported from consensus_clustering_tpu/serve/scheduler.py; two edits: the job fingerprint and _device_count (the executor's CUDA cards).
 """Bounded job scheduler: fair-share admission, timeout, retry.
 
 The service's backpressure layer.  A single worker thread drains a
@@ -1847,14 +1847,18 @@ class Scheduler:
             accum_repr=getattr(spec, "accum_repr", "dense"),
         )
 
-    @staticmethod
-    def _device_count() -> int:
-        """Local device count for the sharded-footprint disclosure: 1,
-        so the disclosure is omitted, until the port's estimator runs
-        on a mesh (ROADMAP A13) — it refuses one today, and a "fits
-        sharded" hint would name a configuration this worker cannot
-        run, however many cards it sees."""
-        return 1
+    def _device_count(self) -> int:
+        """Local device count for the sharded-footprint disclosure: the
+        visible CUDA cards for an executor on CUDA (the port's estimator
+        runs on an ('h', 'n') mesh over them), else 1, and the disclosure
+        is then omitted — a mesh hint over zero extra devices helps
+        nobody."""
+        import torch
+
+        device = getattr(self.executor, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return 1
+        return torch.cuda.device_count()
 
     def _sharded_disclosure(
         self, estimator_est: Dict[str, Any]

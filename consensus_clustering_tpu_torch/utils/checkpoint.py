@@ -42,7 +42,8 @@ def _fingerprint(config: SweepConfig, seed: int, backend: str) -> str:
     ``store_matrices``, ``chunk_size``, ``integrity_check_every`` (a pure
     observer), ``accum_repr`` (packed counts equal dense counts),
     ``use_packed_kernel`` and ``fuse_block`` (the same planes either
-    way); ``stream_h_block`` is normalised to None (streamed full H equals
+    way), ``k_interleave`` (the same counts on any mesh);
+    ``stream_h_block`` is normalised to None (streamed full H equals
     the monolithic sweep bit for bit).  The adaptive knobs stay: they
     change ``h_effective``.
     """
@@ -51,7 +52,7 @@ def _fingerprint(config: SweepConfig, seed: int, backend: str) -> str:
     payload["backend"] = backend
     for name in ("k_values", "store_matrices", "chunk_size",
                  "integrity_check_every", "accum_repr", "use_packed_kernel",
-                 "fuse_block"):
+                 "fuse_block", "k_interleave"):
         payload.pop(name)
     payload["stream_h_block"] = None
     blob = json.dumps(payload, sort_keys=True).encode()
@@ -88,13 +89,14 @@ def stream_fingerprint(
     replace the build config's.  Dropped, as the reference drops them:
     ``store_matrices``, ``chunk_size``, ``use_packed_kernel``,
     ``integrity_check_every`` and ``fuse_block`` (fused and unfused steps
-    write the same planes).
+    write the same planes), and ``k_interleave``: frames hold the counts
+    cropped and in K order, which no mesh changes.
     """
     payload = dataclasses.asdict(config)
     payload["seed"] = seed
     payload["backend"] = backend
     for name in ("store_matrices", "chunk_size", "use_packed_kernel",
-                 "integrity_check_every", "fuse_block"):
+                 "integrity_check_every", "fuse_block", "k_interleave"):
         payload.pop(name)
     payload["n_iterations"] = (
         config.n_iterations if n_iterations is None else int(n_iterations)

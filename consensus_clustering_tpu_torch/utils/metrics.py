@@ -68,12 +68,14 @@ def peak_memory_window(device) -> Iterator[None]:
 
 
 def in_peak_memory_window(method):
-    """Run an engine's method inside :func:`peak_memory_window` on the
-    engine's ``device``."""
+    """Run an engine's method inside :func:`peak_memory_window` on each
+    distinct device of the engine's ``mesh`` that this process holds."""
 
     @functools.wraps(method)
     def wrapped(self, *args, **kwargs):
-        with peak_memory_window(self.device):
+        with contextlib.ExitStack() as windows:
+            for dev in self.mesh.local_devices:
+                windows.enter_context(peak_memory_window(dev))
             return method(self, *args, **kwargs)
 
     return wrapped

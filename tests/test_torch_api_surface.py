@@ -75,10 +75,7 @@ def test_every_reference_keyword_is_a_port_keyword():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(k_interleave=True), "A13"),
-    (dict(mesh=object()), "A13"),
     (dict(plot_cdf=True), "A15"),
-    (dict(mode="estimate", n_pairs=64, mesh=object()), "A13"),
 ])
 def test_unported_keywords_name_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

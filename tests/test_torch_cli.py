@@ -93,8 +93,6 @@ def test_csv_reader_equals_pandas(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["run", "--k-shards", "2"], "A13"),
-    (["run", "--k-interleave"], "A13"),
     (["run", "--plot-dir", "plots"], "A15"),
     (["run", "--use-pallas", "off"], "plain versions"),
     (["run", "--packed-kernel", "off"], "plain versions"),

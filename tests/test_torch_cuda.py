@@ -303,14 +303,16 @@ def test_sentinels_on_the_card_equal_their_cpu_run(cuda, accum_repr):
     from consensus_clustering_tpu_torch.resilience import integrity
 
     engine, state = _stream_state_on_card(cuda, accum_repr, 3)
+    # The sentinel reads the state as the frames hold it (cropped to N).
+    flat = {k: v.contiguous() for k, v in engine.gather_state(state).items()}
     name = "planes" if accum_repr == "packed" else "mij"
     for flips in (0, 2):
         if flips:
-            integrity.flip_array_bits(state[name], flips, seed=5)
+            integrity.flip_array_bits(flat[name], flips, seed=5)
         before = popcount.launch_count
-        got = engine._integrity_stats(state, 48, 2)
+        got = engine._integrity_stats(flat, 48, 2)
         launched = popcount.launch_count - before
-        cpu = engine._integrity_stats({k: v.cpu() for k, v in state.items()},
+        cpu = engine._integrity_stats({k: v.cpu() for k, v in flat.items()},
                                       48, 2)
         assert got == cpu
         assert bool(any(got.values())) == bool(flips)
@@ -644,3 +646,32 @@ def test_service_answers_a_job_on_the_card_and_fuses_bit_for_bit(cuda, tmp_path)
             assert f["pac_area"] == s["pac_area"]
     finally:
         svc.stop()
+
+
+@pytest.mark.parametrize("shape,accum_repr,stream", [
+    ((2, 2, 2), "dense", None), ((1, 2, 2), "packed", 16),
+    ((1, 4, 1), "packed", None)])
+def test_virtual_mesh_on_the_card_equals_one_device(cuda, shape, accum_repr,  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+                                                    stream):
+    """The card repeated as a (k, h, n) mesh: every shard's lanes, row
+    blocks and merges, with B1 at row offsets and B3/B4 on column-sharded
+    planes, equal to one device bit for bit."""
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+    from consensus_clustering_tpu_torch.parallel import resample_mesh
+
+    x, _ = make_blobs(n_samples=301, n_features=8, centers=4,
+                      cluster_std=2.0, random_state=5)
+    kw = dict(K_range=(2, 3, 4, 5), n_iterations=45, random_state=7,
+              cluster_batch=8, accum_repr=accum_repr, stream_h_block=stream,
+              store_matrices=True)
+    one = ConsensusClustering(device=cuda, **kw).fit(x)
+    k, h, n = shape
+    mesh = resample_mesh([torch.device("cuda", 0)] * (k * h * n),
+                         row_shards=n, k_shards=k)
+    got = ConsensusClustering(mesh=mesh, k_interleave=k > 1, **kw).fit(x)
+    for kk in kw["K_range"]:
+        for name in ("pac_area", "hist", "mij", "iij", "cij"):
+            np.testing.assert_array_equal(got.cdf_at_K_data[kk][name],
+                                          one.cdf_at_K_data[kk][name])
+    assert got.metrics_["kernel_launches"]["hist" if stream is None
+                                           else "popcount"] > 0

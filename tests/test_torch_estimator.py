@@ -62,6 +62,7 @@ from consensus_clustering_tpu_torch.estimator.tiled import (
     exact_curves_for_k,
     tiled_exact_curves,
 )
+from consensus_clustering_tpu_torch.parallel.mesh import resample_mesh
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
 from consensus_clustering_tpu_torch.parallel.streaming import StreamingSweep
 from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
@@ -334,9 +335,9 @@ def test_adaptive_stop_and_validation(data):  # jaxlint: disable=JL018 -- CPU po
     with pytest.raises(ValueError, match="store_matrices"):
         PairConsensusEngine(KMeans(), _config(store_matrices=True),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        PairConsensusEngine(KMeans(), _config(), mesh=object(),
-                            device="cpu")
+    with pytest.raises(ValueError, match="'h'/'n'"):
+        PairConsensusEngine(KMeans(), _config(), mesh=resample_mesh(
+            ["cpu"] * 2, k_shards=2))
 
 
 # -- tiled exact curves ---------------------------------------------------

@@ -74,7 +74,8 @@ def test_no_module_imports_jax_or_the_reference_package():
     files = {os.path.relpath(p, PKG) for p in _port_sources()}
     assert {"cli.py", "__main__.py", "serve/admin.py", "obs/query.py",
             "autotune/probes.py", "autotune/cli.py", "ops/probe.py",
-            "utils/platform.py"} <= files
+            "utils/platform.py", "parallel/mesh.py",
+            "parallel/distributed.py"} <= files
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -104,6 +105,14 @@ assert st.metrics_["timing"] == {"packed_kernel": "plain",
                                  "fuse_block": "fused", "fused_kernel": "plain"}
 assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"], st.cdf_at_K_data[k]["mij"])
            for k in (2, 3))
+from consensus_clustering_tpu_torch.parallel import distributed, resample_mesh
+sharded = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                              mesh=resample_mesh(["cpu"] * 8, row_shards=2,
+                                                 k_shards=2),
+                              k_interleave=True).fit(x)
+assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"],
+                          sharded.cdf_at_K_data[k]["mij"]) for k in (2, 3))
+assert distributed.is_primary()
 from sklearn.cluster import KMeans as SkKMeans
 from consensus_clustering_tpu_torch import (
     AgglomerativeClustering, GaussianMixture, SpectralClustering)
@@ -162,6 +171,9 @@ with tempfile.TemporaryDirectory() as tmp:
         main(["run", "--dataset", "blobs", "--n-samples", "60",
               "--n-features", "3", "--k", "2:3", "--iterations", "4",
               "--device", "cpu"])
+        main(["run", "--dataset", "blobs", "--n-samples", "60",
+              "--n-features", "3", "--k", "2:3", "--iterations", "4",
+              "--row-shards", "2", "--device", "cpu"])
         try:
             # --budget 0: every probe budget-skipped, the modules loaded.
             main(["autotune", "run", "--shapes", "smoke", "--budget", "0",
@@ -210,8 +222,7 @@ def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disabl
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(mode="estimate", mesh=object()),
-     dict(k_interleave=True), dict(plot_cdf=True)],
+    [dict(plot_cdf=True)],
 )
 def test_unported_features_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -305,9 +316,8 @@ def test_convert_from_reference_state():
     assert (cfg.n_sub, cfg.k_max, cfg.pac_idx) == (ref.n_sub, ref.k_max,
                                                   ref.pac_idx)
     assert cfg.cluster_batch == 4 and cfg.split_init
-    with pytest.raises(NotImplementedError):
-        config_from_jax(dataclasses.asdict(
-            JaxConfig(n_samples=50, n_features=3, k_interleave=True)))
+    assert config_from_jax(dataclasses.asdict(
+        JaxConfig(n_samples=50, n_features=3, k_interleave=True))).k_interleave
     packed = config_from_jax(dataclasses.asdict(JaxConfig(
         n_samples=50, n_features=3, n_iterations=9, store_matrices=False,
         stream_h_block=4, accum_repr="packed", fuse_block="off",

@@ -122,6 +122,9 @@ def test_scheduler_fuses_two_same_bucket_jobs(executor, tmp_path):
             done = _wait(s, rec["job_id"])
             assert done["result"]["result_fingerprint"] == fp
             assert done["result"]["fused"] == {"batch": 2}
+        # The worker counts a job just after flipping it to done: join it
+        # so that the last job's count has landed before the read.
+        s.stop()
         m = s.metrics()
         assert m["fused_executions_total"] == 1
         assert m["fused_jobs_total"] == 2

@@ -334,13 +334,23 @@ def test_config_and_engine_validation():  # jaxlint: disable=JL018 -- every fit 
         ConsensusClustering(fuse_block="maybe")
 
 
+def _two_process_mesh():
+    """A (1, 2, 1) mesh whose 'h' shards belong to ranks 0 and 1."""
+    from consensus_clustering_tpu_torch.parallel.mesh import Mesh
+
+    devices = np.empty(2, dtype=object)
+    devices[:] = [torch.device("cpu")] * 2
+    return Mesh(devices.reshape(1, 2, 1), np.arange(2).reshape(1, 2, 1))
+
+
 def test_features_left_for_later_raise():  # jaxlint: disable=JL018 -- every run here raises before any block
     config = SweepConfig(n_samples=20, n_features=2, n_iterations=8,
                          store_matrices=False, stream_h_block=4)
     engine = StreamingSweep(KMeans(), config, device="cpu")
     x = np.zeros((20, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="A13"):
-        StreamingSweep(KMeans(), config, mesh=object(), device="cpu")
+    # A mesh across processes (ROADMAP A19).
+    with pytest.raises(NotImplementedError, match="A19"):
+        StreamingSweep(KMeans(), config, mesh=_two_process_mesh())
     # run_fused is ported (the serve batch axis): one job is not a batch.
     with pytest.raises(ValueError, match=">= 2 jobs"):
         engine.run_fused([x], [0], 8)
