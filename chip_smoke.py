@@ -172,14 +172,21 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   group of one lane), Mij equal to one device's; two gloo
                   processes sharing the card, the dense sweep at the
                   headline's width (H cut to 100) with 'h' across them,
-                  equal to one process.  The ``kernels`` phase adds B1's
+                  equal to one process; then two more that run, each
+                  equal to one process bit for bit, the dense sweep
+                  with 'n' across them (``row_shards=2``), the packed
+                  fused stream at the headline's width (H cut to 200,
+                  blocks of 100, a ring each: only rank 0 writes) with
+                  'n' across them, and the estimator at N=100,000 (H=20)
+                  with 'h' across them.  The ``kernels`` phase adds B1's
                   mesh row blocks (N=5000 over 3 and 2 row shards, N=29
                   over 8).  Copies between cards and NCCL are not
                   exercised: the machine has one card.
 
 ``--phases env,mesh_cards`` (not in the default run) needs four cards: the
 mesh phase's dense and stream runs on distinct cards (the same pins) and
-four NCCL processes with a card each, equal to one process.
+four NCCL processes with a card each, the dense sweep and the packed
+fused stream on (h=2, n=2), each equal to one process.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -2993,46 +3000,120 @@ def phase_cli(torch, results):
 # -- phase 17 ------------------------------------------------------------
 
 #: The mesh phase's cuts: the estimator's H (and block) at N = 100,000, the
-#: two processes' H, and the one-lane-group case's H, Ks and group size.
-MESH = dict(estimate_h=20, ranks_h=100, lane_h=17, lane_ks=(2, 8, 14),
-            lane_batch=8)
+#: processes' sweep H and stream H, and the one-lane-group case's H, Ks and
+#: group size.
+MESH = dict(estimate_h=20, ranks_h=100, ranks_stream_h=200, lane_h=17,
+            lane_ks=(2, 8, 14), lane_batch=8)
 
 _RANK = r"""
-import json, sys, time
+import json, os, sys, time
 import numpy as np
 import torch
-from consensus_clustering_tpu_torch import make_blobs
-from consensus_clustering_tpu_torch.config import SweepConfig
-from consensus_clustering_tpu_torch.models.kmeans import KMeans
+from chip_smoke import rank_arrays, rank_engine_run
 from consensus_clustering_tpu_torch.ops import launch_counts, reset_launch_counts
 from consensus_clustering_tpu_torch.parallel import distributed
 from consensus_clustering_tpu_torch.parallel.mesh import resample_mesh
-from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+from consensus_clustering_tpu_torch.resilience.blocks import StreamCheckpointer
 
-coord, pid, procs, h, rows = sys.argv[1], *map(int, sys.argv[2:6])
-cards = [torch.device("cuda", int(i)) for i in sys.argv[6].split(",")]
+coord, pid, procs = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cards = [torch.device("cuda", int(i)) for i in sys.argv[4].split(",")]
+out_dir = sys.argv[6]
 distributed.initialize(coord, num_processes=procs, process_id=pid,
                        local_devices=cards)
-mesh = resample_mesh(row_shards=rows)
-x, _ = make_blobs(n_samples=5000, n_features=50, centers=8, cluster_std=3.0,
-                  random_state=0)
-config = SweepConfig(n_samples=5000, n_features=50,
-                     k_values=tuple(range(2, 21)), n_iterations=h,
-                     store_matrices=False, chunk_size=4, cluster_batch=16)
-reset_launch_counts()
-t0 = time.perf_counter()
-out = run_sweep(KMeans(n_init=3), config, x.astype(np.float32), 23, mesh=mesh)
-print("RESULT " + json.dumps({
-    "pid": pid, "backend": distributed.backend(),
-    "is_primary": distributed.is_primary(), "mesh": mesh.shape,
-    "wall_seconds": time.perf_counter() - t0,
-    "run_seconds": out["timing"]["run_seconds"],
-    "peak_device_bytes": out["timing"]["device_memory"].get(
-        "peak_bytes_in_use"),
-    "launches": launch_counts(), "pac": out["pac_area"].tolist(),
-    "hist": out["hist"].tolist()}), flush=True)
+# Does gloo all-gather CUDA tensors itself?  (The port hands them to it as
+# they are.)
+probe = None
+if distributed.backend() == "gloo":
+    import torch.distributed as dist
+    mine = torch.full((2,), pid, dtype=torch.int32, device=cards[0])
+    got = [torch.empty_like(mine) for _ in range(procs)]
+    try:
+        dist.all_gather(got, mine)
+        probe = "native: " + str([t.tolist() for t in got])
+    except Exception as e:
+        probe = f"refused: {type(e).__name__}: {str(e)[:160]}"
+for item in sys.argv[5].split(","):
+    engine, rows = item.split(":")
+    mesh = resample_mesh(row_shards=int(rows))
+    ring = (StreamCheckpointer(os.path.join(out_dir, f"ring_{engine}_{pid}"))
+            if engine == "stream" else None)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = rank_engine_run(engine, dict(mesh=mesh), ring)
+    wall = time.perf_counter() - t0
+    if ring is not None:
+        ring.close()
+    np.savez(os.path.join(out_dir, f"{engine}_{rows}_{pid}.npz"),
+             **rank_arrays(out))
+    print("RESULT " + json.dumps({
+        "engine": engine, "row_shards": int(rows), "pid": pid,
+        "backend": distributed.backend(),
+        "is_primary": distributed.is_primary(), "mesh": mesh.shape,
+        "wall_seconds": wall,
+        "run_seconds": out["timing"]["run_seconds"],
+        "peak_device_bytes": out["timing"]["device_memory"].get(
+            "peak_bytes_in_use"),
+        "checkpoint_writes": out.get("streaming", {}).get(
+            "checkpoint_writes"),
+        "processes": out["timing"].get("processes"),
+        "gloo_cuda_all_gather": probe,
+        "launches": launch_counts()}), flush=True)
 distributed.shutdown()
 """
+
+
+def rank_engine_run(engine, where, ring=None, x=None):
+    """One run of a ``mesh`` phase process engine on ``where`` (a mesh or
+    a device), from a seed: ``sweep`` the dense sweep at the headline's
+    width (H cut to ``MESH['ranks_h']``), ``stream`` the packed fused
+    stream at the headline's width (H cut to ``MESH['ranks_stream_h']``,
+    blocks of 100, the final state captured, ``ring`` its checkpointer),
+    ``estimate`` the estimator at N = 100,000 (H = ``MESH['estimate_h']``
+    in one block, packed pairs); ``x`` the data (default: made here).  The
+    processes and their one-process references run the same function;
+    the engine's build (kernels already built: none) is in the run."""
+    from consensus_clustering_tpu_torch.config import SweepConfig
+    from consensus_clustering_tpu_torch.estimator.engine import (
+        PairConsensusEngine,
+    )
+    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    from consensus_clustering_tpu_torch.parallel.streaming import (
+        StreamingSweep,
+    )
+    from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
+
+    if x is None:
+        x = estimate_data() if engine == "estimate" else headline_data()
+    shape = dict(n_samples=x.shape[0], n_features=x.shape[1],
+                 k_values=tuple(range(2, 21)), store_matrices=False,
+                 chunk_size=4, cluster_batch=16)
+    if engine == "sweep":
+        config = SweepConfig(**shape, n_iterations=MESH["ranks_h"])
+        return run_sweep(KMeans(n_init=3), config, x, 23, **where)
+    if engine == "stream":
+        h = MESH["ranks_stream_h"]
+        config = SweepConfig(**shape, n_iterations=h,
+                             stream_h_block=STREAM["stream_h_block"],
+                             accum_repr="packed", fuse_block="auto")
+        run = StreamingSweep(KMeans(n_init=3), config, **where)
+        run.warmup()
+        return run.run(x, 23, h, checkpointer=ring, capture_state=True)
+    h = MESH["estimate_h"]
+    config = SweepConfig(**shape, n_iterations=h, stream_h_block=h,
+                         accum_repr="packed")
+    run = PairConsensusEngine(KMeans(n_init=3), config, **where)
+    run.warmup()
+    return run.run(x, 23, h, return_state=True)
+
+
+def rank_arrays(out):
+    """The arrays a process run is held to its one-process run by: the
+    curves, and the captured state or the pair counts."""
+    arrays = {name: out[name] for name in ("hist", "cdf", "pac_area")}
+    for group in ("final_state", "pair_state"):
+        for name, value in out.get(group, {}).items():
+            arrays[f"{group}/{name}"] = value
+    return arrays
 
 
 def phase_mesh(torch, results):
@@ -3041,9 +3122,12 @@ def phase_mesh(torch, results):
     packed fused stream on (h=2, n=2), each equal to ``PINNED_PAC`` with
     its launches pinned; the estimator at N = 100,000 on (h=2, n=2) equal
     to its one-device run; a shard whose last Lloyd group holds one lane;
-    and two gloo processes sharing the card (the monolithic sweep with 'h'
-    across them) equal to one process.  Copies between cards and NCCL are
-    not exercised: the machine has one card."""
+    and gloo processes sharing the card, each engine equal to one process:
+    two holding the card twice each (the monolithic sweep with 'h' across
+    them), then two holding it once each (the sweep and the packed fused
+    stream with 'n' across them, the estimator with 'h' across them).
+    Copies between cards and NCCL are not exercised: the machine has one
+    card."""
     from consensus_clustering_tpu_torch.parallel import resample_mesh
 
     t_phase = time.perf_counter()
@@ -3068,9 +3152,12 @@ def phase_mesh(torch, results):
     check(all(phase_launches.get(k, 0) > 0 for k in KERNEL_NAMES),
           f"mesh: a kernel was not launched on the mesh path: "
           f"{phase_launches}")
-    _mesh_estimator(torch, card, resample_mesh)
+    refs = {"estimate": _mesh_estimator(torch, card, resample_mesh)}
     _mesh_one_lane_group(torch, card, resample_mesh)
-    _mesh_processes(torch, "two_processes", ["0,0", "0,0"], 2, "gloo")
+    _mesh_processes(torch, "two_processes", ["0,0", "0,0"], "sweep:2",
+                    "gloo", refs)
+    _mesh_processes(torch, "two_processes_engines", ["0", "0"],
+                    "sweep:2,stream:2,estimate:1", "gloo", refs)
     emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase,
           "launches": phase_launches, "nvidia_smi": smi_line()})
 
@@ -3078,12 +3165,8 @@ def phase_mesh(torch, results):
 def _mesh_estimator(torch, card, resample_mesh):
     """The estimator at N = 100,000 (cut to H = MESH['estimate_h'] in one
     block) on (h=2, n=2) against its one-device run: curves and every
-    sampled pair's counts bit for bit."""
-    from consensus_clustering_tpu_torch.config import SweepConfig
-    from consensus_clustering_tpu_torch.estimator.engine import (
-        PairConsensusEngine,
-    )
-    from consensus_clustering_tpu_torch.models.kmeans import KMeans
+    sampled pair's counts bit for bit.  Returns the one-device run's
+    arrays and seconds (the processes' reference)."""
     from consensus_clustering_tpu_torch.ops import (
         launch_counts,
         reset_launch_counts,
@@ -3091,20 +3174,13 @@ def _mesh_estimator(torch, card, resample_mesh):
 
     h = MESH["estimate_h"]
     x = estimate_data()
-    config = SweepConfig(n_samples=ESTIMATE_N, n_features=50,
-                         k_values=tuple(range(2, 21)), n_iterations=h,
-                         chunk_size=4, cluster_batch=16,
-                         store_matrices=False, stream_h_block=h,
-                         accum_repr="packed")
     runs = {}
     for name, where in (("one_device", dict(device=card)),
                         ("mesh", dict(mesh=resample_mesh([card] * 4,
                                                          row_shards=2)))):
-        engine = PairConsensusEngine(KMeans(n_init=3), config, **where)
-        engine.warmup()
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = engine.run(x, 23, h, return_state=True)
+        out = rank_engine_run("estimate", where, x=x)
         runs[name] = (out, time.perf_counter() - t0, launch_counts())
     (one, one_s, one_l), (got, got_s, got_l) = runs["one_device"], runs["mesh"]
     same = {name: bool(np.array_equal(got[name], one[name]))
@@ -3128,6 +3204,7 @@ def _mesh_estimator(torch, card, resample_mesh):
                               f"{same}")
     check(got_l["lloyd"] > 0 and got_l["assign"] > 0,
           f"mesh: estimator launched {got_l}")
+    return {"arrays": rank_arrays(one), "seconds": one_s}
 
 
 def _mesh_one_lane_group(torch, card, resample_mesh):
@@ -3154,72 +3231,100 @@ def _mesh_one_lane_group(torch, card, resample_mesh):
     check(all(same.values()), f"mesh: one-lane group Mij differs {same}")
 
 
-def _mesh_processes(torch, name, cards, rows, backend):
+def _mesh_processes(torch, name, cards, engines, backend, refs):
     """One process per entry of ``cards`` (each a comma list of the card
-    indices it holds) in one group: the dense sweep at the headline's
-    width (H cut to MESH['ranks_h']) on the processes' mesh with
-    ``row_shards=rows`` and 'h' across them, against this process's
-    one-device run; the counts must go over ``backend``."""
+    indices it holds) in one group, running each of ``engines`` (a comma
+    list of ``engine:row_shards``, :func:`rank_engine_run`) on the
+    processes' mesh, each held bit for bit to this process's one-process
+    run (``refs``: engine -> its arrays and seconds, filled as needed);
+    the merges must go over ``backend``, rank 0 alone is primary, and only
+    it writes the stream's frames."""
     import socket
 
-    from consensus_clustering_tpu_torch.config import SweepConfig
-    from consensus_clustering_tpu_torch.models.kmeans import KMeans
-    from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
-
-    h = MESH["ranks_h"]
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{sock.getsockname()[1]}"
     env = dict(os.environ, PYTHONPATH=REPO)
+    out_dir = tempfile.mkdtemp(prefix="cctpu_ranks_")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", _RANK, coord, str(pid), str(len(cards)),
-         str(h), str(rows), local], cwd=REPO, env=env,
+         local, engines, out_dir], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for pid, local in enumerate(cards)]
     outs = []
     try:
         for p in procs:
-            stdout, stderr = p.communicate(timeout=600)
-            line = [ln for ln in stdout.splitlines()
-                    if ln.startswith("RESULT ")]
-            check(p.returncode == 0 and bool(line),
+            stdout, stderr = p.communicate(timeout=900)
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            check(p.returncode == 0 and bool(lines),
                   f"mesh: a process exited {p.returncode}: {stderr[-2000:]}")
-            if line:
-                outs.append(json.loads(line[0][len("RESULT "):]))
+            outs.append([json.loads(ln[len("RESULT "):]) for ln in lines])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    config = SweepConfig(n_samples=5000, n_features=50,
-                         k_values=tuple(range(2, 21)), n_iterations=h,
-                         store_matrices=False, chunk_size=4, cluster_batch=16)
-    t1 = time.perf_counter()
-    one = run_sweep(KMeans(n_init=3), config, headline_data(), 23,
-                    device="cuda")
-    one_s = time.perf_counter() - t1
-    same = [bool(np.array_equal(np.asarray(o["pac"], np.float32),
-                                one["pac_area"])
-                 and np.array_equal(np.asarray(o["hist"], np.float32),
-                                    one["hist"])) for o in outs]
-    emit({"phase": "mesh", "run": name,
-          "config": f"make_blobs N=5000 d=50, H={h} (cut from 500), "
-                    "K=2..20, KMeans(n_init=3), cluster_batch=16, "
-                    f"chunk_size=4, seed 23, {len(cards)} processes holding "
-                    f"cards {cards}, row_shards={rows}",
-          "wall_seconds": wall, "one_process_seconds": one_s,
-          "processes": [{k: v for k, v in o.items()
-                         if k not in ("pac", "hist")} for o in outs],
-          "equal_to_one_process": same})
-    check(len(outs) == len(cards) and all(same),
-          f"mesh: {name} != one process {same}")
-    check([o["is_primary"] for o in outs]
-          == [True] + [False] * (len(cards) - 1)
-          and all(o["backend"] == backend for o in outs),
-          f"mesh: {name} roles "
-          f"{[(o['is_primary'], o['backend']) for o in outs]}")
+    try:
+        for item in engines.split(","):
+            engine, rows = item.split(":")
+            if engine not in refs:
+                t1 = time.perf_counter()
+                one = rank_engine_run(engine, dict(device="cuda"))
+                refs[engine] = {"arrays": rank_arrays(one),
+                                "seconds": time.perf_counter() - t1}
+            want = refs[engine]["arrays"]
+            ranks = [next((r for r in o if r["engine"] == engine
+                           and r["row_shards"] == int(rows)), None)
+                     for o in outs]
+            same = []
+            for pid, rank in enumerate(ranks):
+                path = os.path.join(out_dir, f"{engine}_{rows}_{pid}.npz")
+                if rank is None or not os.path.exists(path):
+                    same.append(False)
+                    continue
+                with np.load(path) as got:
+                    same.append(sorted(got.files) == sorted(want) and all(
+                        np.array_equal(got[k], want[k]) for k in want))
+            live = [r for r in ranks if r is not None]
+            emit({"phase": "mesh", "run": f"{name}:{engine}",
+                  "config": _RANK_CONFIGS[engine] + f"; {len(cards)} "
+                            f"processes holding cards {cards}, "
+                            f"row_shards={rows}",
+                  "group_wall_seconds": wall,
+                  "one_process_seconds": refs[engine]["seconds"],
+                  "processes": live, "equal_to_one_process": same})
+            check(len(live) == len(cards) and all(same),
+                  f"mesh: {name} {engine} != one process {same}")
+            check([r["is_primary"] for r in live]
+                  == [True] + [False] * (len(cards) - 1)
+                  and all(r["backend"] == backend for r in live),
+                  f"mesh: {name} roles "
+                  f"{[(r['is_primary'], r['backend']) for r in live]}")
+            if engine == "stream":
+                writes = [r["checkpoint_writes"] for r in live]
+                check(bool(writes) and writes[0] > 0
+                      and not any(writes[1:]),
+                      f"mesh: {name} stream frames written {writes}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+#: What each process engine runs (:func:`rank_engine_run`).
+_RANK_CONFIGS = {
+    "sweep": f"make_blobs N=5000 d=50, H={MESH['ranks_h']} (cut from 500), "
+             "K=2..20, KMeans(n_init=3), cluster_batch=16, chunk_size=4, "
+             "seed 23, the dense sweep",
+    "stream": f"make_blobs N=5000 d=50, H={MESH['ranks_stream_h']} (cut "
+              "from 500), K=2..20, KMeans(n_init=3), cluster_batch=16, "
+              "chunk_size=4, seed 23, the packed fused stream, blocks of "
+              "100, a ring each, the final state captured",
+    "estimate": f"make_blobs N={ESTIMATE_N} d=50, H={MESH['estimate_h']} "
+                "in one block, K=2..20, KMeans(n_init=3), cluster_batch=16, "
+                "chunk_size=4, packed pairs, 2^17 pairs, seed 23",
+}
 
 
 def phase_mesh_cards(torch, results):
@@ -3228,9 +3333,10 @@ def phase_mesh_cards(torch, results):
     (k=2, h=2, n=2) with ``k_interleave`` and the packed fused stream on
     (h=2, n=2), each equal to ``PINNED_PAC`` with the virtual meshes'
     pinned launches (the same shards, so the same launches), the partial
-    counts moving between cards; four processes with a card each, the
-    sweep at the headline's width (H cut to 100) with 'h' across them over
-    NCCL, equal to one process."""
+    counts moving between cards; four processes with a card each over
+    NCCL, the sweep at the headline's width (H cut to 100) with 'h'
+    across them and the packed fused stream (H cut to 200) on (h=2, n=2),
+    in subgroups of two, each equal to one process."""
     from consensus_clustering_tpu_torch.parallel import resample_mesh
 
     t_phase = time.perf_counter()
@@ -3248,8 +3354,8 @@ def phase_mesh_cards(torch, results):
         _drive(torch, name, results, pin=pin, **kwargs)
         emit({"phase": "mesh_cards", "run": name, "peak_bytes_per_card": {
             str(c): torch.cuda.max_memory_allocated(c) for c in cards}})
-    _mesh_processes(torch, "four_nccl_processes", ["0", "1", "2", "3"], 1,
-                    "nccl")
+    _mesh_processes(torch, "four_nccl_processes", ["0", "1", "2", "3"],
+                    "sweep:1,stream:2", "nccl", {})
     emit({"phase": "mesh_cards", "seconds": time.perf_counter() - t_phase,
           "nvidia_smi": smi_line()})
 

@@ -48,7 +48,12 @@ device's memory).
 ``mesh`` (:func:`.parallel.resample_mesh`) shards the device engines over
 a ('k', 'h', 'n') mesh, with ``k_interleave`` laying the K values out
 round-robin over its k-groups; every mesh gives the one-device result bit
-for bit.
+for bit.  A mesh across processes (after
+:func:`.parallel.distributed.initialize`) takes the same ``fit`` in every
+process: each ends with the same results, ``mode="auto"`` runs the
+primary's resolution everywhere, only the primary writes
+``checkpoint_dir``, and ``metrics_["processes"]`` counts the processes
+(``device_memory`` is each process's own).
 
 Plotting, which this package does not have yet, raises
 ``NotImplementedError`` naming the ROADMAP item that ports it (A15).
@@ -518,8 +523,7 @@ class ConsensusClustering:
         )
         ckpt = None
         loaded: Dict[int, Dict[str, np.ndarray]] = {}
-        missing = list(config.k_values)
-        if self.checkpoint_dir is not None:
+        if self.checkpoint_dir is not None and self._writes_checkpoints():
             from consensus_clustering_tpu_torch.utils.checkpoint import (
                 SweepCheckpoint,
                 backend_tag,
@@ -531,7 +535,13 @@ class ConsensusClustering:
                 entry = ckpt.load_k(k)
                 if entry is not None:
                     loaded[k] = entry
-            missing = [k for k in config.k_values if k not in loaded]
+        if self.checkpoint_dir is not None and self._spans_processes():
+            # The primary's per-K checkpoints, on every process: they all
+            # sweep the same missing Ks.
+            from consensus_clustering_tpu_torch.parallel import distributed
+
+            loaded = distributed.broadcast_object(loaded)
+        missing = [k for k in config.k_values if k not in loaded]
         metrics_logger = MetricsLogger(self.metrics_path)
         entries: Dict[int, Dict[str, Any]] = {}
         timings, streaming_infos = [], []
@@ -682,7 +692,49 @@ class ConsensusClustering:
             return "host-backend clusterer (no device block to stream)"
         return None
 
+    def _spans_processes(self) -> bool:
+        """True on a mesh across processes."""
+        return self.mesh is not None and self.mesh.process_count > 1
+
+    def _writes_checkpoints(self) -> bool:
+        """True where this process writes ``checkpoint_dir``: alone, or
+        the primary of a mesh across processes."""
+        if not self._spans_processes():
+            return True
+        from consensus_clustering_tpu_torch.parallel import distributed
+
+        return distributed.is_primary()
+
+    def _ring(self):
+        """The block ring under ``checkpoint_dir`` where this process
+        writes it, else None (across processes the engine follows the
+        primary's)."""
+        if self.checkpoint_dir is None or not self._writes_checkpoints():
+            return None
+        from consensus_clustering_tpu_torch.resilience.blocks import (
+            StreamCheckpointer,
+        )
+
+        return StreamCheckpointer(os.path.join(self.checkpoint_dir, "stream"))
+
     def _resolve_mode(self, n: int, d: int, device):
+        """``(mode, sizing)``: see :meth:`_resolve_mode_here`.  On a mesh
+        across processes the primary's resolution, on every process: the
+        budget is each process's own (``CCTPU_MEMORY_BUDGET`` or its
+        card), and every process must run the same engine."""
+        mode, sizing = self._resolve_mode_here(n, d, device)
+        if self.mode == "auto" and self._spans_processes():
+            from consensus_clustering_tpu_torch.parallel import distributed
+
+            primary = distributed.broadcast_object((mode, sizing))
+            if primary[0] != mode:
+                logger.info("mode=auto: this process resolved %s, the "
+                            "primary %s — running the primary's", mode,
+                            primary[0])
+            mode, sizing = primary
+        return mode, sizing
+
+    def _resolve_mode_here(self, n: int, d: int, device):
         """``(mode, sizing)``: ``mode='auto'`` against the memory budget,
         exact when the dense footprint fits it (or no budget resolves, or
         the estimator cannot run here), the estimator otherwise; logged
@@ -788,17 +840,10 @@ class ConsensusClustering:
             metrics_logger.emit("h_block_complete", block=block,
                                 h_done=h_done, pac_area=pac)
 
-        ring = None
-        if self.checkpoint_dir is not None:
-            # The block ring only, under the estimator's own fingerprint:
-            # the per-K files hold EXACT results and are never read or
-            # written here.
-            from consensus_clustering_tpu_torch.resilience.blocks import (
-                StreamCheckpointer,
-            )
-
-            ring = StreamCheckpointer(
-                os.path.join(self.checkpoint_dir, "stream"))
+        # The block ring only, under the estimator's own fingerprint: the
+        # per-K files hold EXACT results and are never read or written
+        # here.
+        ring = self._ring()
         try:
             with self._profiled(device):
                 out = run_pair_estimate(
@@ -934,17 +979,12 @@ class ConsensusClustering:
             from consensus_clustering_tpu_torch.parallel.streaming import (
                 run_streaming_sweep,
             )
-            from consensus_clustering_tpu_torch.resilience.blocks import (
-                StreamCheckpointer,
-            )
 
             def block_cb(block, h_done, pac):
                 metrics_logger.emit("h_block_complete", block=block,
                                     h_done=h_done, pac_area=pac)
 
-            if self.checkpoint_dir is not None:
-                ring = StreamCheckpointer(
-                    os.path.join(self.checkpoint_dir, "stream"))
+            ring = self._ring()
             try:
                 out = run_streaming_sweep(
                     clusterer, config, X, self.random_state,
@@ -1077,6 +1117,9 @@ class ConsensusClustering:
             "device": timings[-1]["device"],
             "kernel_launches": launches,
         }
+        if "processes" in timings[-1]:
+            # A mesh's processes; ``device_memory`` is this process's.
+            self.metrics_["processes"] = timings[-1]["processes"]
         if loaded:
             self.metrics_["resumed_ks"] = sorted(int(k) for k in loaded)
         memories = [t["device_memory"] for t in timings if t["device_memory"]]

@@ -1,11 +1,11 @@
-"""The sampled-pair consensus engine on one device: O(M) state, any N.
+"""The sampled-pair consensus engine: O(M) state, any N.
 
-The port of the reference package's ``estimator/engine.py`` for one
-device.  PAC needs only the CDF of the consensus values over the upper
-triangle's pair population, and a uniform sample of M pairs estimates a
-CDF with a distribution-free band (:mod:`.bounds`).  The engine streams
-the resample blocks of the streaming engine and keeps counts for the M
-sampled pairs only (:mod:`.sampler`):
+The port of the reference package's ``estimator/engine.py``.  PAC needs
+only the CDF of the consensus values over the upper triangle's pair
+population, and a uniform sample of M pairs estimates a CDF with a
+distribution-free band (:mod:`.bounds`).  The engine streams the resample
+blocks of the streaming engine and keeps counts for the M sampled pairs
+only (:mod:`.sampler`):
 
 - **Pair-exact counts.**  The block draws its plan through
   :func:`..ops.resample.resample_indices` with global resample ids and its
@@ -35,8 +35,12 @@ sampled pairs only (:mod:`.sampler`):
   are summed over 'h' and each K's histogram counts over 'n'.  Every
   merge is an integer sum, so every mesh gives the one-device counts bit
   for bit, and a frame resumes under any mesh with the same padded block.
-  A 'k' axis is refused (the per-K state is M-sized); one process only
-  (ROADMAP A19).
+  A 'k' axis is refused (the per-K state is M-sized).  Across processes
+  ('h' or 'n' spanning them) the merges run in the groups of the
+  processes they span, every process ends with the same counts, and the
+  ring follows the stream's rules (:class:`..parallel.streaming.
+  RingRole`: the primary reads and writes, a resume is broadcast; the
+  sentinel's verdict is agreed over the processes).
 
 The per-pair AND, popcount, gathers and the masked histogram are XLA ops
 in the reference and plain torch ops here; the clusterer runs the port's
@@ -52,7 +56,7 @@ import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch import rng
-from consensus_clustering_tpu_torch.config import SweepConfig, not_ported
+from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.estimator.bounds import (
     DEFAULT_DELTA,
     bound_disclosure,
@@ -78,16 +82,18 @@ from consensus_clustering_tpu_torch.ops.resample import resample_indices
 from consensus_clustering_tpu_torch.parallel.mesh import (
     KSHARD_AXIS,
     RESAMPLE_AXIS,
-    ROW_AXIS,
     Mesh,
     engine_mesh,
 )
 from consensus_clustering_tpu_torch.parallel.streaming import (
+    RingRole,
     adaptive_decision,
+    agree_counts,
 )
 from consensus_clustering_tpu_torch.parallel.sweep import (
     DeviceCopies,
     _shard_labels,
+    gather_lines,
     build_kernels,
     launches_since,
     local_column,
@@ -222,9 +228,6 @@ class PairConsensusEngine:
                 "matters; build the mesh with k_shards=1 and give the "
                 "devices to 'h'/'n'"
             )
-        if self.mesh.process_count > 1:
-            raise not_ported("the pair estimator on a mesh across "
-                             "processes", "A19")
         self.config = config
         self.clusterer = clusterer
         self.device = self.mesh.primary
@@ -246,9 +249,10 @@ class PairConsensusEngine:
 
     def init_state(self) -> Dict[str, Dict[int, torch.Tensor]]:
         """Zeroed int32 pair-count shards on their devices: ``mij`` (nK,
-        m_local) and ``iij`` (m_local,) per row shard r."""
+        m_local) and ``iij`` (m_local,) per row shard r this process
+        keeps."""
         out = {"mij": {}, "iij": {}}
-        for r in range(self._geo.n_r):
+        for r in self.mesh.held_rows(0):
             dev = self.mesh.device(self.mesh.row_owner(0, r))
             out["mij"][r] = torch.zeros((self._n_ks, self._m_local),
                                         dtype=torch.int32, device=dev)
@@ -258,17 +262,12 @@ class PairConsensusEngine:
 
     def gather_state(self, state) -> Dict[str, torch.Tensor]:
         """The counts of the M sampled pairs, padding slots cropped, on
-        the primary device: ``mij`` (nK, M) and ``iij`` (M,)."""
-        owners = {r: self.mesh.row_owner(0, r) for r in range(self._geo.n_r)}
-        axis = self.mesh.axis(owners[0], ROW_AXIS)
+        the primary device: ``mij`` (nK, M) and ``iij`` (M,).  Collective
+        across processes: every process gets them."""
         m = self.n_pairs
-        out = {}
-        for name, dim in (("mij", 1), ("iij", 0)):
-            joined = self.mesh.all_gather(
-                {owners[r]: t for r, t in state[name].items()}, axis,
-                dim=dim, dest=(0, 0, 0))
-            out[name] = joined[..., :m]
-        return out
+        return {name: self.mesh.merge_rows(0, state[name], dim=dim,
+                                           dest=self.device)[..., :m]
+                for name, dim in (("mij", 1), ("iij", 0))}
 
     def _load_state(self, state, flat: Dict[str, torch.Tensor]) -> None:
         """Write :meth:`gather_state`-shaped counts into the shards."""
@@ -366,7 +365,8 @@ class PairConsensusEngine:
             return on(indices, c)[row_lanes(geo, c[1])]
 
         cons_div = {}
-        for r in range(geo.n_r):
+        held = mesh.held_rows(0)
+        for r in held:
             parts = {c: self._iij_increment(rows(c), *pairs[c][:2])
                      for c in local_column(mesh, 0, r)}
             state["iij"][r] += mesh.psum(
@@ -382,12 +382,12 @@ class PairConsensusEngine:
                                        on(key_cluster, c), k, xs, h_total,
                                        h_start)
                       for c, xs in x_sub.items()}
+            lines = gather_lines(mesh, labels, 0)
             hist = {}
-            for r in range(geo.n_r):
+            for r in held:
                 parts = {}
                 for c in local_column(mesh, 0, r):
-                    group = mesh.all_gather(labels, mesh.axis(c, ROW_AXIS),
-                                            dest=c)
+                    group = lines[c[1]].to(mesh.device(c), non_blocking=True)
                     parts[c] = self._mij_increment(group, rows(c),
                                                    *pairs[c][:2])
                 mij = state["mij"][r][i]
@@ -397,11 +397,9 @@ class PairConsensusEngine:
                 # diagonal); padding slots are masked out.
                 o = mesh.row_owner(0, r)
                 cons = mij.to(torch.float32) / cons_div[r]
-                hist[o] = masked_histogram_counts(
+                hist[r] = masked_histogram_counts(
                     cons[None, :], pairs[o][2][None, :], config.bins)
-            counts.append(mesh.psum(
-                hist, mesh.axis(mesh.row_owner(0, 0), ROW_AXIS)
-            ).to(self.device))
+            counts.append(mesh.merge_rows(0, hist, dest=self.device))
         return torch.stack(counts)
 
     # -- resilience ------------------------------------------------------
@@ -417,11 +415,16 @@ class PairConsensusEngine:
         return {"range_bad": int(range_bad), "bound_bad": int(bound_bad)}
 
     def _flip_state_bits(self, state, nbits: int, block: int) -> None:
-        """The ``accumulator`` bitflip fault on ``mij``, in place (reached
-        only when a fault plan armed it)."""
-        host = self.gather_state(state)["mij"].cpu().numpy().copy()
+        """The ``accumulator`` bitflip fault on ``mij``, in place: the real
+        slots of this process's first shard (on one device, every pair),
+        with no merge, as a plan may arm one process only (reached only
+        when a fault plan armed it)."""
+        r, shard = sorted(state["mij"].items())[0]
+        live = shard[:, :max(0, min(self._m_local,
+                                    self.n_pairs - r * self._m_local))]
+        host = live.cpu().numpy().copy()
         flip_array_bits(host, nbits, seed=block)
-        self._load_state(state, {"mij": torch.from_numpy(host)})
+        live.copy_(torch.from_numpy(host))
 
     def _verify_frame(self, header, arrays) -> Optional[str]:
         """:func:`verify_pair_state_frame` after the counts' shapes are
@@ -500,7 +503,8 @@ class PairConsensusEngine:
         start_block = 0
         resume_terminal = False
         state = None
-        if checkpointer is not None:
+        ring = RingRole(self.mesh, checkpointer)
+        if ring.on:
             ckpt_fp = estimator_stream_fingerprint(
                 config, seed, data_fingerprint(np.asarray(x)),
                 backend=backend_tag(device), n_pairs=m,
@@ -508,8 +512,7 @@ class PairConsensusEngine:
                 adaptive_patience=adaptive_patience,
                 adaptive_min_h=adaptive_min_h,
             )
-            writes0 = checkpointer.writes_total
-            resume = checkpointer.latest(ckpt_fp, verify=self._verify_frame)
+            resume = ring.latest(ckpt_fp, self._verify_frame)
             if resume is not None:
                 header, arrays = resume
                 state = self.init_state()
@@ -526,7 +529,7 @@ class PairConsensusEngine:
                 curves = {name[len("curve_"):]: arrays[name]
                           for name in arrays if name.startswith("curve_")}
                 start_block = int(header["block_index"]) + 1
-                checkpointer.resumes_total += 1
+                ring.resumed()
                 stopped_early = bool(header.get("stopped", False))
                 resume_terminal = stopped_early or h_effective >= n_iterations
                 if not resume_terminal and h_effective != start_block * hb:
@@ -562,9 +565,9 @@ class PairConsensusEngine:
                     self._flip_state_bits(state, nbits, b)
                 if check_due(b):
                     integrity_checks += 1
-                    bad = {name: v for name, v in
-                           self._integrity_stats(self.gather_state(state),
-                                                 h_done).items() if v}
+                    found = agree_counts(self.mesh, self._integrity_stats(
+                        self.gather_state(state), h_done))
+                    bad = {name: v for name, v in found.items() if v}
                     if bad:
                         raise IntegrityError(
                             "accumulator",
@@ -592,12 +595,12 @@ class PairConsensusEngine:
                         n_iterations,
                     )
                 prev_pac = pac
-                if checkpointer is not None:
+                flat = self.gather_state(state) if ring.on else None
+                if ring.writer:
                     # Copies: the next block updates the state in place.
                     arrays = {f"state_{name}":
                               value.to("cpu", copy=True).numpy()
-                              for name, value in
-                              self.gather_state(state).items()}
+                              for name, value in flat.items()}
                     arrays.update({f"curve_{name}": v
                                    for name, v in curves.items()})
                     checkpointer.write_async({
@@ -646,10 +649,7 @@ class PairConsensusEngine:
             "stopped_early": stopped_early,
             "pac_trajectory": trajectory,
             "resumed_from_block": int(start_block),
-            "checkpoint_writes": (
-                checkpointer.writes_total - writes0
-                if checkpointer is not None else 0
-            ),
+            "checkpoint_writes": ring.writes(),
             "integrity_checks": int(integrity_checks),
             "integrity_check_every": int(integrity_check_every),
             "accum_repr": config.accum_repr,
@@ -665,6 +665,7 @@ class PairConsensusEngine:
             "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
             "mesh": dict(self.mesh.shape),
+            "processes": self.mesh.process_count,
         }
         return out
 

@@ -5,14 +5,20 @@ process has called :func:`initialize`, :func:`..mesh.resample_mesh` (with no
 devices) spans every process's devices in rank-major order, as
 ``jax.devices()`` does after ``jax.distributed.initialize``, and the same
 sharded engine runs on every process: each computes its own shards, and a
-merge whose shards lie on several processes goes through a
-``torch.distributed`` process group on the int32 counts.
+merge whose shards lie on several processes goes through the
+``torch.distributed`` group of exactly those processes.  Building a mesh
+makes the group of every set of ranks one of its axis lines spans
+(:func:`make_groups`, collective: every process builds the same mesh).
 
-The group's backend: NCCL when every process has CUDA cards of its own;
+The groups' backend: NCCL when every process has CUDA cards of its own;
 gloo on the CPU, and for processes that share a card (NCCL refuses two
 ranks on one GPU).  The choice is logged and :func:`backend` reports it.
-gloo takes the counts as CUDA tensors but runs its all-reduce in host
-memory: it copies them to the host and back inside the call.
+gloo takes CUDA tensors in its all-reduce and all-gather but runs them
+in host memory (it copies them to the host and back inside the call;
+checked with torch 2.11 on an H100 by ``chip_smoke.py``'s ``mesh``
+phase).  Objects
+(a resumed frame, a mode decision, a sentinel's verdict) go over the
+default gloo group (:func:`broadcast_object`, :func:`gather_objects`).
 Typical launch (the same script in every process)::
 
     from consensus_clustering_tpu_torch.parallel import distributed
@@ -20,15 +26,17 @@ Typical launch (the same script in every process)::
     mesh = resample_mesh(row_shards=2)      # every process's devices
     cc = ConsensusClustering(..., mesh=mesh)
 
-The monolithic sweep runs across processes; the stream and the estimator
-take a mesh of one process only (ROADMAP A19).
+Every engine that takes a mesh runs across processes (the monolithic
+sweep, the stream, the estimator), with any of 'k', 'h' and 'n' spanning
+them; every process ends with the one-device result, and only the
+primary (rank 0) writes checkpoints.
 """
 
 from __future__ import annotations
 
 import logging
 import socket
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,10 +44,10 @@ from consensus_clustering_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-# The process's distributed state: the devices table and the counts'
-# group.  The process group itself is process-global in torch.distributed,
-# as the runtime is in JAX.
-_STATE: Dict[str, object] = {}
+# The process's distributed state: the devices table, the backend and the
+# merges' groups (sorted rank tuple -> group).  The process group itself
+# is process-global in torch.distributed, as the runtime is in JAX.
+_STATE: Dict[str, Any] = {}
 
 
 def _card_id(device: torch.device) -> str:
@@ -98,19 +106,20 @@ def initialize(
     if all(card != "cpu" for card in cards) and not shared:
         backend = "nccl"
         torch.cuda.set_device(local[0])
-        counts_group = dist.new_group(backend="nccl")
+        world = dist.new_group(backend="nccl")
     else:
         backend = "gloo"
-        counts_group = dist.group.WORLD
+        world = dist.group.WORLD
     _STATE.update(
         backend=backend,
-        group=counts_group,
+        groups={tuple(range(dist.get_world_size())): world},
         devices=[ProcessDevice(rank, torch.device(name))
                  for rank, entries in enumerate(table)
                  for name, _ in entries],
     )
     logger.info(
-        "distributed: process %d/%d up, %d global devices, counts over %s%s",
+        "distributed: process %d/%d up, %d global devices, merges over "
+        "%s%s",
         dist.get_rank(), dist.get_world_size(), len(_STATE["devices"]),
         backend, " (processes share a card)" if shared else "",
     )
@@ -158,11 +167,73 @@ def devices():
     return list(_STATE["devices"])
 
 
-def counts_group():
-    """The process group the counts are merged in (every process)."""
+def make_groups(rank_sets: Sequence[Sequence[int]]) -> None:
+    """Make the group of each set of two or more ranks that has none yet,
+    in the order given, on the merges' backend.  Collective:
+    ``torch.distributed.new_group`` must be called by every process for
+    every group, members or not, in the same order, so every process
+    calls this with the same sets (a mesh's, in grid order)."""
+    import torch.distributed as dist
+
     if not is_initialized():
         raise RuntimeError("distributed.initialize has not run")
-    return _STATE["group"]
+    groups = _STATE["groups"]
+    for ranks in rank_sets:
+        key = tuple(sorted(set(int(r) for r in ranks)))
+        if len(key) > 1 and key not in groups:
+            groups[key] = dist.new_group(ranks=list(key),
+                                         backend=_STATE["backend"])
+            logger.info("distributed: group %s over %s", key,
+                        _STATE["backend"])
+
+
+def group(ranks: Sequence[int]):
+    """The group of exactly ``ranks`` (made by :func:`make_groups`)."""
+    key = tuple(sorted(set(int(r) for r in ranks)))
+    if not is_initialized() or key not in _STATE["groups"]:
+        raise RuntimeError(
+            f"no process group for ranks {key}: build the mesh with "
+            "resample_mesh after distributed.initialize")
+    return _STATE["groups"][key]
+
+
+def all_reduce(tensor: torch.Tensor, ranks: Sequence[int]) -> None:
+    """Sum ``tensor`` in place over the processes ``ranks``."""
+    import torch.distributed as dist
+
+    dist.all_reduce(tensor, group=group(ranks))
+
+
+def all_gather(tensor: torch.Tensor,
+               ranks: Sequence[int]) -> List[torch.Tensor]:
+    """Every one of ``ranks``' ``tensor`` (equal shapes), in rank order,
+    on ``tensor``'s device."""
+    import torch.distributed as dist
+
+    tensor = tensor.contiguous()
+    out = [torch.empty_like(tensor) for _ in sorted(set(ranks))]
+    dist.all_gather(out, tensor, group=group(ranks))
+    return out
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """``obj`` of process ``src`` on every process (pickled, over the
+    default gloo group); every process calls it, the others' ``obj``
+    unused."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def gather_objects(obj: Any) -> List[Any]:
+    """Every process's ``obj``, in rank order, on every process."""
+    import torch.distributed as dist
+
+    out: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def shutdown() -> None:

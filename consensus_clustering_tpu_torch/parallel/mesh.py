@@ -19,8 +19,15 @@ On distinct cards the merges move tensors with ``.to(owner,
 non_blocking=True)``: a copy between the cards where they have peer
 access, which the CUDA driver otherwise stages through host memory.  After
 :func:`.distributed.initialize`, a mesh spans every process's devices in
-rank-major order, and a sum over 'h' whose shards lie on several
-processes is all-reduced in the process group (:mod:`.distributed`).
+rank-major order, and any axis may span processes.  A merge whose shards
+lie on several processes runs in the group of exactly those processes
+(:func:`.distributed.make_groups`, made when the mesh is built): a sum
+over an 'h' column is all-reduced, a gather along an 'n' line
+all-gathered as equal-shaped shards, and the K values of k-groups held by
+other processes are filled in by :meth:`Mesh.merge_k`.  Each process keeps
+the state of the row shards it holds a shard of, so every merge is a
+function of shard coordinates alone, the same on every process, and
+every process issues the merges it takes part in in the same order.
 
 The merges are exact for integers, which is all the engines merge
 (counts, labels, bit-plane words), so every factorisation of the mesh
@@ -84,7 +91,9 @@ class Mesh:
         self.primary = self.device(local[0])
         self.local_devices: List[torch.device] = list(
             dict.fromkeys(self.device(c) for c in local))
-        self.process_count = len(set(ranks.flat))
+        self.process_ranks: Tuple[int, ...] = tuple(
+            sorted(set(int(r) for r in ranks.flat)))
+        self.process_count = len(self.process_ranks)
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, processes={self.process_count}, "
@@ -113,62 +122,163 @@ class Mesh:
         over them lands here), or None."""
         return next((c for c in coords if self.is_local(c)), None)
 
-    def row_owner(self, g: int, r: int) -> Coord:
+    def ranks_of(self, coords: Sequence[Coord]) -> Tuple[int, ...]:
+        """The processes holding ``coords``, sorted."""
+        return tuple(sorted({int(self.ranks[c]) for c in coords}))
+
+    def rank_sets(self) -> List[Tuple[int, ...]]:
+        """The processes of every axis line, in grid order, then of the
+        whole mesh: the sets the merges run in."""
+        out = []
+        for i, name in enumerate(AXES):
+            for c in self.coords():
+                if c[i] == 0:
+                    out.append(self.ranks_of(self.axis(c, name)))
+        out.append(self.process_ranks)
+        return out
+
+    def holds(self, g: int) -> bool:
+        """True where this process holds a shard of k-group ``g``."""
+        return bool((self.ranks[g] == self.rank).any())
+
+    def row_owner(self, g: int, r: int) -> Optional[Coord]:
         """Where this process keeps the row block ``r`` of k-group ``g``:
         its first shard of that 'h' column, the owner of the merge over
-        'h' (every process holds one, :func:`_check_process_layout`)."""
+        'h'; None where it holds no shard of the column (once 'n' or 'k'
+        spans processes)."""
         return self.owner(self.axis((g, 0, r), RESAMPLE_AXIS))
 
-    def _group(self, coords: Sequence[Coord]):
-        """The process group of the counts when ``coords`` lie on several
-        processes (then on every one: :func:`_check_process_layout`), else
-        None."""
-        if len({int(self.ranks[c]) for c in coords}) == 1:
-            return None
-        from consensus_clustering_tpu_torch.parallel import distributed
+    def held_rows(self, g: int) -> List[int]:
+        """The row blocks of k-group ``g`` this process keeps."""
+        return [r for r in range(self.shape[ROW_AXIS])
+                if self.row_owner(g, r) is not None]
 
-        return distributed.counts_group()
+    def _dest(self, dest) -> torch.device:
+        """A merge's destination: a coordinate's device, or a device."""
+        return self.device(dest) if isinstance(dest, tuple) else dest
 
     def psum(self, parts: Dict[Coord, torch.Tensor],
-             coords: Sequence[Coord]) -> Optional[torch.Tensor]:
+             coords: Sequence[Coord], dest=None) -> Optional[torch.Tensor]:
         """The sum of integer partial counts over one axis group.
 
         ``parts`` holds this process's shards of ``coords`` (every local
-        one).  They are summed on the device of :meth:`owner`, in shard
-        order; across processes the sum is then all-reduced in the
-        group, so every process holding a shard gets it.  None where this
-        process holds no shard of the group.
+        one).  They are summed on ``dest`` (a local coordinate or a
+        device; default the device of :meth:`owner`), in shard order;
+        across processes the sum is then all-reduced in the group of the
+        processes holding ``coords``, so every one of them gets it.  None
+        where this process holds no shard of the group.
         """
         owner = self.owner(coords)
         if owner is None:
             return None
-        dev = self.device(owner)
+        dev = self._dest(owner if dest is None else dest)
         total = None
         for c in coords:
             if c in parts:
                 t = parts[c].to(dev, non_blocking=True)
                 total = t if total is None else total + t
-        group = self._group(coords)
-        if group is not None:
-            import torch.distributed as dist
+        ranks = self.ranks_of(coords)
+        if len(ranks) > 1:
+            from consensus_clustering_tpu_torch.parallel import distributed
 
             if any(total is p for p in parts.values()):
                 total = total.clone()  # the reduction is in place
-            dist.all_reduce(total, group=group)
+            distributed.all_reduce(total, ranks)
         return total
 
     def all_gather(self, parts: Dict[Coord, torch.Tensor],
                    coords: Sequence[Coord], dim: int = 0,
-                   dest: Optional[Coord] = None) -> torch.Tensor:
+                   dest=None) -> torch.Tensor:
         """The concatenation of one axis group's shards along ``dim``, in
-        shard order, on ``dest``'s device (default :meth:`owner`); one
-        shard is returned as it is.  The shards lie in this process:
-        across processes the ported layouts split 'h' only
-        (:func:`_check_process_layout`), and the engines gather along 'n'
-        and 'k'."""
-        dev = self.device(self.owner(coords) if dest is None else dest)
-        ts = [parts[c].to(dev, non_blocking=True) for c in coords]
-        return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
+        shard order, on ``dest`` (a local coordinate or a device; default
+        :meth:`owner`'s device); one shard is returned as it is.
+
+        ``parts`` holds this process's shards of ``coords``.  Across
+        processes every shard must have one shape: each process sends its
+        shards stacked (padded with zeros to the most any process holds),
+        the group of the processes holding ``coords`` all-gathers them,
+        and every one of those processes concatenates the same shards.
+        """
+        dev = self._dest(self.owner(coords) if dest is None else dest)
+        ranks = self.ranks_of(coords)
+        if len(ranks) == 1:
+            ts = [parts[c].to(dev, non_blocking=True) for c in coords]
+            return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
+        from consensus_clustering_tpu_torch.parallel import distributed
+
+        held = {rk: [c for c in coords if int(self.ranks[c]) == rk]
+                for rk in ranks}
+        mine = [parts[c].to(dev, non_blocking=True)
+                for c in held[self.rank]]
+        slots = max(len(cs) for cs in held.values())
+        mine += [torch.zeros_like(mine[0])] * (slots - len(mine))
+        got = distributed.all_gather(torch.stack(mine), ranks)
+        pieces = []
+        for c in coords:
+            rk = int(self.ranks[c])
+            pieces.append(got[ranks.index(rk)][held[rk].index(c)])
+        return torch.cat(pieces, dim)
+
+    def row_lines(self, g: int) -> List[List[Coord]]:
+        """The 'n' lines of k-group ``g`` this process merges its row
+        shards over, in 'h' order: every line spanning processes that
+        holds a shard here (each of their processes takes part in each),
+        else the first line it holds a shard of."""
+        lines = [self.axis((g, h, 0), ROW_AXIS)
+                 for h in range(self.shape[RESAMPLE_AXIS])]
+        mine = [ln for ln in lines if self.owner(ln) is not None]
+        spanning = [ln for ln in mine if len(self.ranks_of(ln)) > 1]
+        return spanning or mine[:1]
+
+    def rows_span(self, g: int) -> bool:
+        """True where k-group ``g``'s row merges here cross processes."""
+        return any(len(self.ranks_of(ln)) > 1 for ln in self.row_lines(g))
+
+    def merge_rows(self, g: int, values: Dict[int, torch.Tensor],
+                   dim: Optional[int] = None, dest=None) -> torch.Tensor:
+        """k-group ``g``'s row shards combined on every process holding a
+        shard of it: ``values[r]`` is this process's copy of row shard
+        ``r``'s value (for each of :meth:`held_rows`), summed (``dim``
+        None) or concatenated along ``dim`` in row order, on ``dest``.
+        Every 'n' line holds each row shard once, so the merge runs along
+        :meth:`row_lines`."""
+        out = None
+        for line in self.row_lines(g):
+            parts = {c: values[c[2]] for c in line if self.is_local(c)}
+            got = (self.psum(parts, line, dest=dest) if dim is None
+                   else self.all_gather(parts, line, dim=dim, dest=dest))
+            out = got if out is None else out  # every line: the same
+        return out
+
+    def splits_k(self) -> bool:
+        """True where some process holds no shard of some k-group: its
+        K values then come from other processes (:meth:`merge_k`)."""
+        every = set(self.process_ranks)
+        return any(set(int(r) for r in self.ranks[g].flat) != every
+                   for g in range(self.shape[KSHARD_AXIS]))
+
+    def merge_k(self, values: Dict[int, torch.Tensor],
+                group_of: Sequence[int], like: torch.Tensor,
+                dest) -> Dict[int, torch.Tensor]:
+        """Every K position's value on every process: ``values`` holds
+        those this process computed (its k-groups'), ``group_of[i]`` is
+        position ``i``'s k-group, ``like`` a tensor of the values' shape
+        and dtype.  Where :meth:`splits_k`, the lowest process of each
+        k-group contributes its values, zeros elsewhere, and the sum is
+        all-reduced over the mesh's processes: an integer sum with zeros,
+        exact for counts and bit patterns alike."""
+        if not self.splits_k():
+            return values
+        from consensus_clustering_tpu_torch.parallel import distributed
+
+        buf = torch.zeros((len(group_of),) + tuple(like.shape),
+                          dtype=like.dtype, device=dest)
+        for i, g in enumerate(group_of):
+            first = min(int(r) for r in self.ranks[g].flat)
+            if i in values and first == self.rank:
+                buf[i] = values[i].to(dest)
+        distributed.all_reduce(buf, self.process_ranks)
+        return {i: buf[i] for i in range(len(group_of))}
 
 
 def _process_devices(devices) -> List[ProcessDevice]:
@@ -221,28 +331,13 @@ def resample_mesh(
     mesh = Mesh(grid.reshape(shape), ranks.reshape(shape),
                 distributed.process_index())
     if mesh.process_count > 1:
-        _check_process_layout(mesh)
+        if mesh.process_count != distributed.process_count():
+            raise ValueError(
+                f"a mesh across processes spans every process: this one "
+                f"holds {mesh.process_count} of "
+                f"{distributed.process_count()}")
+        distributed.make_groups(mesh.rank_sets())
     return mesh
-
-
-def _check_process_layout(mesh: Mesh) -> None:
-    """Across processes the ported layouts split the 'h' axis only: each
-    process holds whole 'n' rows and a shard of every ('k', 'n')
-    position, so each merge over 'n' or 'k' stays in one process and
-    every process ends with the whole result."""
-    from consensus_clustering_tpu_torch.config import not_ported
-
-    every = set(int(r) for r in mesh.ranks.flat)
-    k_s, h_s, n_s = mesh.devices.shape
-    rows_whole = all(len(set(mesh.ranks[g, h, :].tolist())) == 1
-                     for g in range(k_s) for h in range(h_s))
-    columns_full = all(set(mesh.ranks[g, :, r].tolist()) == every
-                       for g in range(k_s) for r in range(n_s))
-    if not (rows_whole and columns_full):
-        raise not_ported(
-            "a mesh whose 'k' or 'n' axis spans processes (across "
-            "processes, shard 'h' only: every process holds whole 'n' rows "
-            "and a device of every 'k' group)", "A19")
 
 
 def engine_mesh(mesh: Optional[Mesh], device=None) -> Mesh:

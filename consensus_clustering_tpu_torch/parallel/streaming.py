@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch import rng
-from consensus_clustering_tpu_torch.config import SweepConfig, not_ported
+from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
@@ -81,6 +81,8 @@ from consensus_clustering_tpu_torch.parallel.sweep import (
     _shard_labels,
     build_kernels,
     curves_from_counts,
+    gather_lines,
+    k_positions_groups,
     kernel_route,
     launches_since,
     local_column,
@@ -176,7 +178,19 @@ class StreamingSweep:
     ``capture_state`` and ``finalize`` see the state cropped to N and in
     K order (:meth:`gather_state`), which no mesh changes, so a frame
     written under one mesh resumes under any mesh with the same padded
-    block.  One process only (ROADMAP A19).
+    block.
+
+    Across processes (any of 'k', 'h', 'n' spanning them) each process
+    keeps the state of the (k-group, row shard)s it holds a shard of,
+    and runs the merges it takes part in (:mod:`.mesh`).
+    :meth:`gather_state` is collective: every process calls it at the
+    same points and gets the one-device layout, so the sentinel, the
+    adaptive stop, ``capture_state`` and :meth:`finalize` read the same
+    tensors everywhere, and a sentinel's verdict is agreed over the
+    processes.  Only the primary process writes frames; on resume it
+    picks the generation and broadcasts it, so a process that cannot see
+    the ring resumes all the same, and a frame written under one process
+    layout resumes under another with the same padded block.
     """
 
     def __init__(
@@ -193,9 +207,6 @@ class StreamingSweep:
                 "monolithic program"
             )
         self.mesh = engine_mesh(mesh, device)
-        if self.mesh.process_count > 1:
-            raise not_ported("the streaming engine on a mesh across "
-                             "processes", "A19")
         self.config = config
         self.clusterer = clusterer
         self.device = self.mesh.primary
@@ -249,9 +260,11 @@ class StreamingSweep:
     # -- state -----------------------------------------------------------
 
     def _owners(self):
-        """(g, r) -> the coordinate keeping that state shard."""
+        """(g, r) -> the coordinate keeping that state shard, for each
+        shard this process keeps."""
         return {(g, r): self.mesh.row_owner(g, r)
-                for g in range(self._geo.n_k) for r in range(self._geo.n_r)}
+                for g in range(self._geo.n_k)
+                for r in self.mesh.held_rows(g)}
 
     def _shard_shapes(self) -> Dict[str, Tuple[int, ...]]:
         geo, k_max = self._geo, self.config.k_max
@@ -263,8 +276,8 @@ class StreamingSweep:
                 "iij": (geo.n_local, geo.n_pad)}
 
     def init_state(self) -> Dict[str, Dict[Tuple[int, int], torch.Tensor]]:
-        """Fresh zeroed int32 state shards, made on their devices:
-        ``{name: {(g, r): tensor}}``."""
+        """Fresh zeroed int32 state shards this process keeps, made on
+        their devices: ``{name: {(g, r): tensor}}``."""
         owners = self._owners()
         return {name: {gr: torch.zeros(shape, dtype=torch.int32,
                                        device=self.mesh.device(c))
@@ -282,11 +295,9 @@ class StreamingSweep:
     def _gather_rows(self, shards, g: int, dim: int) -> torch.Tensor:
         """One k-group's shards of a state tensor joined along ``dim`` (the
         element axis) on the primary device."""
-        parts = {self.mesh.row_owner(g, r): shards[(g, r)]
-                 for r in range(self._geo.n_r)}
-        return self.mesh.all_gather(
-            parts, self.mesh.axis(self.mesh.row_owner(g, 0), ROW_AXIS),
-            dim=dim, dest=(0, 0, 0))
+        return self.mesh.merge_rows(
+            g, {r: t for (gi, r), t in shards.items() if gi == g},
+            dim=dim, dest=self.device)
 
     def gather_state(self, state) -> Dict[str, torch.Tensor]:
         """The state in K order on the primary device, in the layout of
@@ -295,19 +306,34 @@ class StreamingSweep:
         ``mij`` (nK, N, N) and ``iij`` (N, N); packed ``planes`` (nK, k_max,
         w_cap, W) and ``coplanes`` (w_cap, W), with W the one-device
         element width (:meth:`_frame_width`; columns >= N hold no bits).
-        On one device these are the state's own tensors."""
+        On one device these are the state's own tensors.  Collective
+        across processes: each gathers its k-groups' rows, then the Ks
+        of k-groups it does not hold (:meth:`..mesh.Mesh.merge_k`)."""
         n = self.config.n_samples
         per_k, whole = ("planes", "coplanes") if self._packed else (
             "mij", "iij")
-        groups = {g: self._gather_rows(state[per_k], g,
-                                       3 if self._packed else 1)
-                  for g in range(self._geo.n_k)}
+        groups, other = {}, None
+        for g in range(self._geo.n_k):
+            if not self.mesh.holds(g):
+                continue
+            groups[g] = self._gather_rows(state[per_k], g,
+                                          3 if self._packed else 1)
+            # Each k-group keeps its own copy of the rest: a group whose
+            # rows span processes merges it with those processes.
+            if other is None or self.mesh.rows_span(g):
+                got = self._gather_rows(state[whole], g,
+                                        1 if self._packed else 0)
+                other = got if other is None else other
         rows = self._k_rows()
         if self._geo.n_k == 1 and rows == [(0, j) for j in range(self._n_ks)]:
             stacked = groups[0][:self._n_ks]
         else:
-            stacked = torch.stack([groups[g][j] for g, j in rows])
-        other = self._gather_rows(state[whole], 0, 1 if self._packed else 0)
+            mine = {i: groups[g][j] for i, (g, j) in enumerate(rows)
+                    if g in groups}
+            like = next(iter(groups.values()))[0]
+            merged = self.mesh.merge_k(mine, [g for g, _ in rows], like,
+                                       self.device)
+            stacked = torch.stack([merged[i] for i in range(self._n_ks)])
         if not self._packed:
             return {per_k: stacked[:, :n, :n], whole: other[:n, :n]}
         width = self._frame_width()
@@ -388,7 +414,9 @@ class StreamingSweep:
         indices = self._block_plan(key_resample, h_start, h_total)
         counts = [None] * self._n_ks
         for g in range(geo.n_k):
-            for r in range(geo.n_r):
+            if not mesh.holds(g):
+                continue  # another process runs this k-group's Ks
+            for r in mesh.held_rows(g):
                 parts = {c: _cosample(on(indices, c)[row_lanes(geo, c[1])],
                                       n, geo, r, False)
                          for c in local_column(mesh, g, r)}
@@ -400,12 +428,13 @@ class StreamingSweep:
                                            on(key_cluster, c), k, xs,
                                            h_total, h_start)
                           for c, xs in x_sub.items()}
+                lines = gather_lines(mesh, labels, g)
                 hist = {}
-                for r in range(geo.n_r):
+                for r in mesh.held_rows(g):
                     parts = {}
                     for c in local_column(mesh, g, r):
-                        row = mesh.all_gather(labels, mesh.axis(c, ROW_AXIS),
-                                              dest=c)
+                        row = lines[c[1]].to(mesh.device(c),
+                                             non_blocking=True)
                         parts[c] = _coassoc(
                             row, on(indices, c)[row_lanes(geo, c[1])], n,
                             k_max, config, geo, r, False)
@@ -416,15 +445,22 @@ class StreamingSweep:
                     # over every resample so far, at the last block the
                     # monolithic input.
                     o = mesh.row_owner(g, r)
-                    hist[o] = consensus_hist_from_counts(
+                    hist[r] = consensus_hist_from_counts(
                         mij, state["iij"][(g, r)], n, r * geo.n_local,
                         config.bins,
                         torch.zeros(config.bins, dtype=torch.int64,
                                     device=mesh.device(o)))
-                counts[i] = mesh.psum(
-                    hist, mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
-                ).to(self.device)
-        return counts
+                counts[i] = mesh.merge_rows(g, hist, dest=self.device)
+        return self._merge_counts(counts)
+
+    def _merge_counts(self, counts):
+        """Every K's histogram counts on every process: the Ks of k-groups
+        this process does not hold come from the processes that do."""
+        mine = {i: c for i, c in enumerate(counts) if c is not None}
+        merged = self.mesh.merge_k(
+            mine, k_positions_groups(self._geo),
+            torch.zeros(self.config.bins, dtype=torch.int64), self.device)
+        return [merged[i] for i in range(self._n_ks)]
 
     def _step_packed(self, state, x, x_cols, key_resample, key_cluster,
                      h_start, h_total):
@@ -435,10 +471,12 @@ class StreamingSweep:
         word0 = (h_start // self._hb) * wb
         counts = [None] * self._n_ks
         for g in range(geo.n_k):
+            if not mesh.holds(g):
+                continue  # another process runs this k-group's Ks
             # Each shard's 'h' row's plan in its own element columns, and
             # the bit offset of that row's first resample in the block.
             cols, my_cop = {}, {}
-            for r in range(geo.n_r):
+            for r in mesh.held_rows(g):
                 parts = {}
                 for c in local_column(mesh, g, r):
                     rows = on(indices, c)[row_lanes(geo, c[1])]
@@ -454,28 +492,33 @@ class StreamingSweep:
             slots = self._group_slots(g)
             for j, _, k in slots:
                 if self.fuse_block == "fused":
-                    cents = {c: _shard_centroids(self.clusterer, config, geo,
-                                                 c, on(key_cluster, c), k,
-                                                 xs, h_start)
-                             for c, xs in x_sub.items()}
+                    # Padded to a shard's lanes for the gather, then cut to
+                    # the row's valid lanes (a prefix of its lanes).
+                    lines = gather_lines(mesh, {
+                        c: _pad_lanes(_shard_centroids(
+                            self.clusterer, config, geo, c,
+                            on(key_cluster, c), k, xs, h_start),
+                            geo.local_h)
+                        for c, xs in x_sub.items()}, g)
+                    lines = {h: t[:self._row_valid(g, h, h_start, h_total)]
+                             for h, t in lines.items()}
                 else:
-                    labels = {c: _shard_labels(self.clusterer, config, geo,
-                                               c, on(key_cluster, c), k, xs,
-                                               h_total, h_start)
-                              for c, xs in x_sub.items()}
-                for r in range(geo.n_r):
+                    lines = gather_lines(mesh, {
+                        c: _shard_labels(self.clusterer, config, geo, c,
+                                         on(key_cluster, c), k, xs,
+                                         h_total, h_start)
+                        for c, xs in x_sub.items()}, g)
+                for r in mesh.held_rows(g):
                     parts = {}
                     for c in local_column(mesh, g, r):
                         g0 = row_lanes(geo, c[1]).start
+                        row = lines[c[1]].to(mesh.device(c),
+                                             non_blocking=True)
                         if self.fuse_block == "fused":
-                            row = mesh.all_gather(
-                                cents, mesh.axis(c, ROW_AXIS), dest=c)
                             parts[c] = fused_assign_pack(
                                 x_cols[c], row, k, my_cop[c], g0,
                                 n_words=wb)
                         else:
-                            row = mesh.all_gather(
-                                labels, mesh.axis(c, ROW_AXIS), dest=c)
                             parts[c] = pack_label_planes(
                                 row, cols[c], k_max, nlp, n_words=wb,
                                 row0=g0)
@@ -484,28 +527,32 @@ class StreamingSweep:
             # The evaluation, per row tile of each row shard: one Iij tile,
             # then every K's Mij tile from its planes, histogrammed through
             # its Cij (formed in the kernel's registers) and dropped: the
-            # only int32 counts that ever exist in the packed step.
+            # only int32 counts that ever exist in the packed step.  The
+            # planes are gathered along 'n' once a block (across processes,
+            # from every process holding the group).
+            held = mesh.held_rows(g)
+            first = mesh.device(mesh.row_owner(g, held[0]))
+            planes_all = self._gather_rows(state["planes"], g, 3)
+            cop_all = self._gather_rows(state["coplanes"], g, 1)
             hist = {}
-            for r in range(geo.n_r):
-                o = mesh.row_owner(g, r)
-                axis = mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
-                planes = mesh.all_gather(
-                    {mesh.row_owner(g, rr): state["planes"][(g, rr)]
-                     for rr in range(geo.n_r)}, axis, dim=3, dest=o)
-                cop = mesh.all_gather(
-                    {mesh.row_owner(g, rr): state["coplanes"][(g, rr)]
-                     for rr in range(geo.n_r)}, axis, dim=1, dest=o)
+            for r in held:
+                dev = mesh.device(mesh.row_owner(g, r))
+                planes = planes_all.to(dev, non_blocking=True)
+                cop = cop_all.to(dev, non_blocking=True)
                 words = planes[:len(slots)].reshape(
                     len(slots), k_max * self._w_cap, self._n_pad2)
-                hist[o] = packed_hist_counts(
+                hist[r] = packed_hist_counts(
                     words, cop, config.bins, self._tile_r,
                     n_valid=config.n_samples, rows=(r * nlp, (r + 1) * nlp))
-            merged = mesh.psum(
-                hist, mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
-            ).to(self.device)
+            merged = mesh.merge_rows(g, hist, dest=first).to(self.device)
             for (_, i, _), row in zip(slots, merged):
                 counts[i] = row
-        return counts
+        return self._merge_counts(counts)
+
+    def _row_valid(self, g: int, h: int, h_start: int, h_total: int) -> int:
+        """The valid lanes of 'h' row ``h`` of k-group ``g`` in a block."""
+        return sum(valid_lanes(self._geo, c, h_total, h_start)
+                   for c in self.mesh.axis((g, h, 0), ROW_AXIS))
 
     def columns(self, x: torch.Tensor):
         """The fused step's element rows of each local shard: ``{coord:
@@ -578,27 +625,34 @@ class StreamingSweep:
     def _flip_state_bits(self, state, nbits: int, block: int,
                          h_seen: int) -> None:
         """The ``accumulator`` bitflip fault, in place: the live region of
-        the per-K accumulator (dense ``mij``; packed: the planes' words of
-        the blocks run) goes to the host, gets
-        :func:`..resilience.integrity.flip_array_bits` with the block as
-        seed, and is written back.  Reached only when a plan armed it."""
-        name = "planes" if self._packed else "mij"
-        value = self.gather_state(state)[name].clone()
-        live = value
+        this process's first per-K accumulator shard (dense ``mij``;
+        packed: the planes' words of the blocks run) goes to the host,
+        gets :func:`..resilience.integrity.flip_array_bits` with the block
+        as seed, and is written back; on one device that is the whole
+        accumulator.  No merge runs: a plan may arm one process only.
+        Reached only when a plan armed it."""
+        n = self.config.n_samples
+        (g, r), value = sorted(
+            state["planes" if self._packed else "mij"].items())[0]
+        real = len(self._group_slots(g))
         if self._packed:
-            live = value[:, :, :-(-h_seen // self._hb) * self._wb,
-                         :self.config.n_samples]
+            words = -(-h_seen // self._hb) * self._wb
+            cols = min(self._n_local_pack, n - r * self._n_local_pack)
+            live = value[:real, :, :words, :cols]
+        else:
+            live = value[:real, :min(self._geo.n_local,
+                                     n - r * self._geo.n_local), :n]
         host = live.cpu().numpy().copy()
         flip_array_bits(host, nbits, seed=block)
         live.copy_(torch.from_numpy(host))
-        self._load_state(state, {name: value})
 
-    def _host_snapshot(self, state) -> Dict[str, np.ndarray]:
-        """A host copy of :meth:`gather_state` for the ring, taken before
-        the next block updates the state in place; packed planes as uint32
-        views of their int32 bit patterns, the reference's frame dtype."""
+    def _host_snapshot(self, flat) -> Dict[str, np.ndarray]:
+        """A host copy of :meth:`gather_state`'s ``flat`` for the ring,
+        taken before the next block updates the state in place; packed
+        planes as uint32 views of their int32 bit patterns, the
+        reference's frame dtype."""
         out = {}
-        for name, value in self.gather_state(state).items():
+        for name, value in flat.items():
             host = value.to("cpu", copy=True).numpy()
             out[f"state_{name}"] = host.view(np.uint32) if self._packed \
                 else host
@@ -733,7 +787,8 @@ class StreamingSweep:
         start_block = 0
         resume_terminal = False
         seconds = dict.fromkeys(("restore", "copy", "integrity"), 0.0)
-        if checkpointer is not None:
+        ring = RingRole(self.mesh, checkpointer)
+        if ring.on:
             ckpt_fp = stream_fingerprint(
                 config, seed, data_fingerprint(np.asarray(x)),
                 backend=backend_tag(device), n_iterations=n_iterations,
@@ -741,10 +796,8 @@ class StreamingSweep:
                 adaptive_patience=adaptive_patience,
                 adaptive_min_h=adaptive_min_h,
             )
-            writes0 = checkpointer.writes_total
-            write_s0 = checkpointer.write_seconds_total
             t_restore = time.perf_counter()
-            resume = checkpointer.latest(ckpt_fp, verify=self._verify_frame)
+            resume = ring.latest(ckpt_fp, self._verify_frame)
             if resume is not None:
                 header, arrays = resume
                 terminal = (bool(header.get("stopped", False))
@@ -771,7 +824,7 @@ class StreamingSweep:
                 host = {name[len("curve_"):]: arrays[name]
                         for name in arrays if name.startswith("curve_")}
                 start_block = int(header["block_index"]) + 1
-                checkpointer.resumes_total += 1
+                ring.resumed()
                 stopped_early = bool(header.get("stopped", False))
                 # A terminal generation (stop decided, or the last block)
                 # replays the stored answer with no block run.
@@ -808,8 +861,8 @@ class StreamingSweep:
                         torch.cuda.synchronize(device)
                     t_check = time.perf_counter()
                     integrity_checks += 1
-                    found = self._integrity_stats(self.gather_state(state),
-                                                  h_done, b)
+                    found = agree_counts(self.mesh, self._integrity_stats(
+                        self.gather_state(state), h_done, b))
                     seconds["integrity"] += time.perf_counter() - t_check
                     bad = {name: v for name, v in found.items() if v}
                     if bad:
@@ -836,10 +889,13 @@ class StreamingSweep:
                         n_iterations,
                     )
                 prev_pac = pac
-                if checkpointer is not None:
+                if ring.on:
                     t_copy = time.perf_counter()
-                    arrays = self._host_snapshot(state)
+                    flat = self.gather_state(state)
+                    if ring.writer:
+                        arrays = self._host_snapshot(flat)
                     seconds["copy"] += time.perf_counter() - t_copy
+                if ring.writer:
                     arrays.update({f"curve_{name}": v
                                    for name, v in host.items()})
                     checkpointer.write_async({
@@ -893,19 +949,13 @@ class StreamingSweep:
             "stopped_early": stopped_early,
             "pac_trajectory": trajectory,
             "resumed_from_block": int(start_block),
-            "checkpoint_writes": (
-                checkpointer.writes_total - writes0
-                if checkpointer is not None else 0
-            ),
+            "checkpoint_writes": ring.writes(),
             "integrity_checks": int(integrity_checks),
             "integrity_check_every": int(integrity_check_every),
             "accum_repr": config.accum_repr,
             "restore_seconds": seconds["restore"],
             "checkpoint_copy_seconds": seconds["copy"],
-            "checkpoint_write_seconds": (
-                checkpointer.write_seconds_total - write_s0
-                if checkpointer is not None else 0.0
-            ),
+            "checkpoint_write_seconds": ring.write_seconds(),
             "integrity_seconds": seconds["integrity"],
         }
         out["timing"] = {
@@ -918,6 +968,7 @@ class StreamingSweep:
             "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
             "mesh": dict(self.mesh.shape),
+            "processes": self.mesh.process_count,
         }
         if self.packed_kernel is not None:
             out["timing"]["packed_kernel"] = self.packed_kernel
@@ -989,6 +1040,77 @@ class StreamingSweep:
             for i, (x, seed, checkpointer) in enumerate(
                 zip(xs, seeds, checkpointers))
         ]
+
+
+class RingRole:
+    """What this process does with a run's checkpoint ring.
+
+    On one process: whatever ``checkpointer`` (or None) says.  On a mesh
+    across processes the primary's decides for every process: where it
+    has a ring, every process takes part in the state gathers of its
+    snapshots and resumes (``on``), but only the primary reads the ring
+    and writes frames (``writer``); what it resumes from is broadcast, so
+    a process that cannot see the ring resumes all the same.
+    """
+
+    def __init__(self, mesh: Mesh, checkpointer: Optional[StreamCheckpointer]):
+        from consensus_clustering_tpu_torch.parallel import distributed
+
+        self.checkpointer = checkpointer
+        self.spans = mesh.process_count > 1
+        primary = not self.spans or distributed.is_primary()
+        self.on = checkpointer is not None
+        if self.spans:
+            self.on = bool(distributed.broadcast_object(self.on))
+        self.writer = primary and checkpointer is not None
+        self._writes0 = checkpointer.writes_total if checkpointer else 0
+        self._write_s0 = (checkpointer.write_seconds_total
+                          if checkpointer else 0.0)
+
+    def latest(self, fingerprint: str, verify):
+        """The primary's newest verified generation, on every process."""
+        found = (self.checkpointer.latest(fingerprint, verify=verify)
+                 if self.writer else None)
+        if self.spans:
+            from consensus_clustering_tpu_torch.parallel import distributed
+
+            found = distributed.broadcast_object(found)
+        return found
+
+    def resumed(self) -> None:
+        if self.checkpointer is not None:
+            self.checkpointer.resumes_total += 1
+
+    def writes(self) -> int:
+        if self.checkpointer is None:
+            return 0
+        return self.checkpointer.writes_total - self._writes0
+
+    def write_seconds(self) -> float:
+        if self.checkpointer is None:
+            return 0.0
+        return self.checkpointer.write_seconds_total - self._write_s0
+
+
+def agree_counts(mesh: Mesh, found: Dict[str, int]) -> Dict[str, int]:
+    """A sentinel's violation counts summed over a mesh's processes, so
+    every process reaches one verdict (a breach in one process's copy
+    raises in all, and none is left waiting in a merge)."""
+    if mesh.process_count == 1:
+        return found
+    from consensus_clustering_tpu_torch.parallel import distributed
+
+    every = distributed.gather_objects(found)
+    return {name: sum(int(f[name]) for f in every) for name in found}
+
+
+def _pad_lanes(t: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``t`` with zero lanes appended along its first axis up to
+    ``lanes``: the same tensor when it has them already."""
+    pad = lanes - t.shape[0]
+    if pad <= 0:
+        return t
+    return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
 
 
 def _to_width(words: torch.Tensor, width: int) -> torch.Tensor:

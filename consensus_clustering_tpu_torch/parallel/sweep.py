@@ -323,7 +323,10 @@ def build_sweep(
     n_local`` and the counts are summed over 'n'.  The per-K rows are
     un-permuted, K padding cropped, and the curves derived from the
     assembled counts, so every mesh gives the one-device result bit for
-    bit.  Shards run one after another from this thread.
+    bit.  Shards run one after another from this thread.  Across
+    processes each runs the k-groups and row blocks it holds a shard of;
+    the Ks of k-groups it does not hold arrive by :meth:`..mesh.Mesh.
+    merge_k`, so every process returns the whole result.
 
     ``progress_callback(k, pac)``, if given, is called once per K as soon
     as that K's curves exist (in K order without a 'k' axis, else in the
@@ -355,17 +358,23 @@ def build_sweep(
             geo.h_pad)
         counts: Dict[int, torch.Tensor] = {}
         mijs: Dict[int, torch.Tensor] = {}
-        iij_rows = None
+        iij_full = None
         for g in range(geo.n_k):
+            if not mesh.holds(g):
+                continue  # another process runs this k-group's Ks
             iij = {}
-            for r in range(geo.n_r):
+            for r in mesh.held_rows(g):
                 parts = {}
                 for c in local_column(mesh, g, r):
                     rows = on(indices, c)[row_lanes(geo, c[1])]
                     parts[c] = _cosample(rows, n, geo, r, packed)
                 iij[r] = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
-            if iij_rows is None:
-                iij_rows = iij
+            # Each k-group's Iij is the same: a group whose rows span
+            # processes merges it with those processes.
+            if config.store_matrices and (iij_full is None
+                                          or mesh.rows_span(g)):
+                full = primary(mesh.merge_rows(g, iij, dim=0))[:n, :n]
+                iij_full = full if iij_full is None else iij_full
             shards = [c for c in mesh.coords() if c[0] == g
                       and mesh.is_local(c)]
             x_sub = {c: on(x, c)[on(indices, c)[shard_lanes(geo, c)]
@@ -379,40 +388,44 @@ def build_sweep(
                                            on(key_cluster, c), k, x_sub[c],
                                            h_total)
                           for c in shards}
+                lines = gather_lines(mesh, labels, g)
                 owner_hist = {}
                 mij_rows = {}
-                for r in range(geo.n_r):
+                for r in mesh.held_rows(g):
                     parts = {}
                     for c in local_column(mesh, g, r):
-                        row = mesh.all_gather(
-                            labels, mesh.axis(c, ROW_AXIS), dest=c)
                         rows = on(indices, c)[row_lanes(geo, c[1])]
+                        row = lines[c[1]].to(mesh.device(c),
+                                             non_blocking=True)
                         parts[c] = _coassoc(row, rows, n, k_max, config,
                                             geo, r, packed)
                     mij = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
-                    o = mesh.row_owner(g, r)
                     cij = consensus_matrix(mij, iij[r],
                                            row_offset=r * geo.n_local)
-                    owner_hist[o] = consensus_hist_counts(
+                    owner_hist[r] = consensus_hist_counts(
                         cij, n, r * geo.n_local, config.bins)
                     if config.store_matrices:
-                        mij_rows[o] = mij
-                hist_axis = mesh.axis(mesh.row_owner(g, 0), ROW_AXIS)
-                counts[orig[p]] = primary(mesh.psum(owner_hist, hist_axis))
+                        mij_rows[r] = mij
+                counts[orig[p]] = primary(mesh.merge_rows(g, owner_hist))
                 if progress_callback is not None:
-                    pac = curves_from_counts(
-                        config, [counts[orig[p]]])["pac_area"]
-                    progress_callback(int(k), float(pac[0]))
+                    _report(progress_callback, config, k, counts[orig[p]])
                 if config.store_matrices:
-                    mijs[orig[p]] = primary(mesh.all_gather(
-                        mij_rows, hist_axis))[:n, :n]
+                    mijs[orig[p]] = primary(
+                        mesh.merge_rows(g, mij_rows, dim=0))[:n, :n]
+        # Across processes that split 'k': the Ks other processes ran.
+        group_of = k_positions_groups(geo)
+        ran = set(counts)
+        counts = mesh.merge_k(counts, group_of, torch.zeros(
+            config.bins, dtype=torch.int32), mesh.primary)
+        if config.store_matrices:
+            mijs = mesh.merge_k(mijs, group_of, iij_full, mesh.primary)
+        if progress_callback is not None:
+            for i in sorted(set(counts) - ran):
+                _report(progress_callback, config, config.k_values[i],
+                        counts[i])
         out = curves_from_counts(config,
                                  [counts[i] for i in range(geo.n_ks)])
         if config.store_matrices:
-            owners = {mesh.row_owner(0, r): iij_rows[r]
-                      for r in range(geo.n_r)}
-            iij_full = primary(mesh.all_gather(
-                owners, mesh.axis(mesh.row_owner(0, 0), ROW_AXIS)))[:n, :n]
             out["iij"] = iij_full
             out["mij"] = torch.stack([mijs[i] for i in range(geo.n_ks)])
             out["cij"] = torch.stack([consensus_matrix(m, iij_full)
@@ -422,6 +435,37 @@ def build_sweep(
     sweep.device = mesh.primary
     sweep.mesh = mesh
     return sweep
+
+
+def _report(progress_callback, config: SweepConfig, k: int,
+            counts: torch.Tensor) -> None:
+    """``progress_callback(k, pac)`` from one K's assembled counts."""
+    pac = curves_from_counts(config, [counts])["pac_area"]
+    progress_callback(int(k), float(pac[0]))
+
+
+def k_positions_groups(geo: SweepGeometry) -> List[int]:
+    """The k-group that runs each K position (K padding dropped)."""
+    k_local = len(geo.k_values_pad) // geo.n_k
+    out = [0] * geo.n_ks
+    for p, i in enumerate(geo.k_original()):
+        if i < geo.n_ks:
+            out[i] = p // k_local
+    return out
+
+
+def gather_lines(mesh: Mesh, parts: Dict[Any, torch.Tensor],
+                 g: int) -> Dict[int, torch.Tensor]:
+    """Each 'h' row of k-group ``g`` this process holds a shard of: its
+    shards' ``parts`` (this process's; across processes every shard's)
+    concatenated along 'n' in shard order, once a row, on the device of
+    the row's first local shard."""
+    out = {}
+    for h in range(mesh.shape[RESAMPLE_AXIS]):
+        line = mesh.axis((g, h, 0), ROW_AXIS)
+        if mesh.owner(line) is not None:
+            out[h] = mesh.all_gather(parts, line)
+    return out
 
 
 def _row_block(geo: SweepGeometry, r: int) -> Dict[str, int]:
@@ -498,8 +542,9 @@ def run_sweep(
     ``resamples_per_second`` (H x nK / run_seconds), ``device_memory``
     (peak allocator bytes of this run on the primary device; {} on the
     CPU), ``device_memory_per_device`` (the same for each distinct device
-    of the mesh), ``kernel_launches`` (launches of each kernel in this
-    run), ``mesh`` (its axis sizes) and, for a packed sweep,
+    of the mesh this process holds), ``kernel_launches`` (launches of
+    each kernel in this run), ``mesh`` (its axis sizes), ``processes``
+    (how many processes the mesh spans) and, for a packed sweep,
     ``packed_kernel`` (``cuda`` or ``plain``).
     """
     sweep = build_sweep(clusterer, config, device, progress_callback, mesh)
@@ -532,6 +577,7 @@ def run_sweep(
             "device_memory_per_device": per_device_memory(mesh),
             "kernel_launches": launches_since(launches0),
             "mesh": dict(mesh.shape),
+            "processes": mesh.process_count,
         }
         if config.accum_repr == "packed":
             host["timing"]["packed_kernel"] = kernel_route(device)

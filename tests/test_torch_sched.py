@@ -158,6 +158,9 @@ def test_progressive_job_estimate_then_refinement(executor, tmp_path):
         refined = cont["result"]
         assert refined["refined"] is True and refined["mode"] == "exact"
         assert refined["K"] == [parent["result"]["best_k"]]
+        # The worker counts a job just after flipping it to done: join it
+        # so that the continuation's count has landed before the read.
+        s.stop()
         m = s.metrics()
         assert m["continuations_completed_total"] == 1
         assert m["estimator_runs_total"] == 1

@@ -348,9 +348,10 @@ def test_features_left_for_later_raise():  # jaxlint: disable=JL018 -- every run
                          store_matrices=False, stream_h_block=4)
     engine = StreamingSweep(KMeans(), config, device="cpu")
     x = np.zeros((20, 2), np.float32)
-    # A mesh across processes (ROADMAP A19).
-    with pytest.raises(NotImplementedError, match="A19"):
-        StreamingSweep(KMeans(), config, mesh=_two_process_mesh())
+    # A mesh across processes builds (its merges run only in a group).
+    across = StreamingSweep(KMeans(), config, mesh=_two_process_mesh())
+    assert across.mesh.process_count == 2
+    assert across._owners() == {(0, 0): (0, 0, 0)}
     # run_fused is ported (the serve batch axis): one job is not a batch.
     with pytest.raises(ValueError, match=">= 2 jobs"):
         engine.run_fused([x], [0], 8)
