@@ -91,7 +91,7 @@ def part_clusterers():
         fits = {batch: ConsensusClustering(
             clusterer=clusterer, clusterer_options={}, K_range=ks,
             n_iterations=h, random_state=23, store_matrices=True,
-            cluster_batch=batch, progress=False).fit(x)
+            cluster_batch=batch, progress=False, plot_cdf=False).fit(x)
             for batch in (None, 16, 2, 1)}
         for batch in (16, 2, 1):
             emit({"part": "clusterers", "clusterer": name, "H": h,

@@ -5,7 +5,8 @@ Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
 
 1. env          — the card's name and power limit (nvidia-smi), torch/CUDA
-                  versions, and the seconds to build the four kernel
+                  versions, matplotlib's (null when it does not
+                  import), and the seconds to build the four kernel
                   sources from csrc/ (one nvcc per source, started
                   together);
 2. kernels      — each kernel against its plain PyTorch version on the
@@ -157,10 +158,29 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   job is queued or running),
                   ``list``, ``trace``, ``report`` and ``bundle`` (the job
                   record inside), then SIGINT (exit 0 within 10 s);
-                  ``bench`` and ``lint`` refused naming A18 and A15.
-                  Prints each step's wall time (for ``run``, the wall
-                  minus ``run_seconds``: process start and kernel load);
-17. mesh        — multi-device sweeps on virtual meshes (the card
+                  ``lint --pack all --json`` on the CI gate's paths
+                  (exit 0, no new finding against the committed baseline,
+                  no error) beside ``bench``, refused naming A18.  Prints each step's wall time (for ``run``,
+                  the wall minus ``run_seconds``: process start and
+                  kernel load);
+17. plot        — plotting at the cli phase's dense headline width
+                  (make_blobs N=5000 d=50 seed 23, H=100, K=2..20,
+                  KMeans(n_init=3)): the library ``fit`` with
+                  ``plot_cdf=True, store_matrices=True`` (counts set to 0
+                  just before) and ``run --plot-dir`` in a subprocess:
+                  per-K PAC equal bit for bit, B1, B2 and the assignment
+                  launched in both.  With matplotlib, the heatmap labels'
+                  spectral KMeans launches B2 and the assignment in the
+                  subprocess, the fit's figure draws
+                  one curve per K (``[0] + cdf``), the run writes
+                  ``cdf.png``, ``delta_k.png`` and
+                  ``consensus_matrix_K{best}.png``, the first two equal
+                  byte for byte to the figures drawn in this process, and
+                  the heatmap's image is Cij in the order of its labels.
+                  Without it, the fit raises ``ImportError`` after the
+                  sweep (results set) and the run prints its JSON and exits
+                  non-zero, as the reference does; the phase says so;
+18. mesh        — multi-device sweeps on virtual meshes (the card
                   repeated): the dense headline on (k=2, h=2, n=2) with
                   ``k_interleave`` and the packed fused stream (blocks of
                   100) on (h=2, n=2), each through the API with the
@@ -214,7 +234,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "headline", "stream", "resume", "small",
           "stream_small", "resilience_small", "corr", "clusterers",
           "estimate", "estimate_check", "refine", "append", "serve", "cli",
-          "mesh")
+          "plot", "mesh")
 KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
@@ -356,8 +376,15 @@ def phase_env(torch):
                if "Used" in ln or "spill" in ln or "entry function" in ln]
         for name, text in reports.items()
     }
+    try:
+        import matplotlib
+
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
     emit({"phase": "env", "nvidia_smi": line, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matplotlib": mpl,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "built": list(KERNELS), "build_seconds": build_s,
@@ -1077,7 +1104,7 @@ def _drive(torch, phase, results, pin=None, **kwargs):
     )
 
     x = headline_data()
-    cc = ConsensusClustering(**HEADLINE, **kwargs)
+    cc = ConsensusClustering(**HEADLINE, **kwargs, plot_cdf=False)
     reset_launch_counts()
     t0 = time.perf_counter()
     cc.fit(x)
@@ -1203,7 +1230,7 @@ def phase_resume(torch, results):
         first_checks = None
         t0 = time.perf_counter()
         try:
-            ConsensusClustering(**kwargs).fit(x)
+            ConsensusClustering(**kwargs, plot_cdf=False).fit(x)
         except InjectedFault as e:
             first_checks = e.integrity_checks_run
         finally:
@@ -1215,7 +1242,7 @@ def phase_resume(torch, results):
         with open(os.path.join(ring, gens[-1]), "rb") as f:
             header, arrays = decode_frame(f.read())
         t0 = time.perf_counter()
-        cc = ConsensusClustering(**kwargs).fit(x)
+        cc = ConsensusClustering(**kwargs, plot_cdf=False).fit(x)
         second_wall = time.perf_counter() - t0
         launches = launch_counts()
         left = sorted(os.listdir(tmp))
@@ -1441,14 +1468,16 @@ def phase_resilience_small(torch):
               f"{report['c_resumed_from_block']}")
     kw = dict(n_iterations=40, random_state=7, store_matrices=True,
               cluster_batch=16)
-    fresh = ConsensusClustering(K_range=range(2, 7), **kw).fit(x)
+    fresh = ConsensusClustering(K_range=range(2, 7), **kw,
+                                plot_cdf=False).fit(x)
     seen = []
     with tempfile.TemporaryDirectory() as tmp:
         ConsensusClustering(K_range=range(2, 5), checkpoint_dir=tmp,
-                            **kw).fit(x)
+                            **kw, plot_cdf=False).fit(x)
         wider = ConsensusClustering(
             K_range=range(2, 7), checkpoint_dir=tmp,
-            progress_callback=lambda k, p: seen.append((k, p)), **kw).fit(x)
+            progress_callback=lambda k, p: seen.append((k, p)), **kw,
+            plot_cdf=False).fit(x)
     report["d"] = ok = wider.metrics_.get("resumed_ks") == [2, 3, 4] and all(
         np.array_equal(wider.cdf_at_K_data[k][name],
                        fresh.cdf_at_K_data[k][name])
@@ -1506,6 +1535,7 @@ def phase_small(torch):
         fits[device] = ConsensusClustering(
             K_range=range(2, 7), n_iterations=40, random_state=7,
             store_matrices=True, cluster_batch=16, device=device,
+            plot_cdf=False,
         ).fit(x)
     ks = list(range(2, 7))
     gpu, cpu = fits["cuda"].cdf_at_K_data, fits["cpu"].cdf_at_K_data
@@ -1590,7 +1620,8 @@ def phase_corr(torch):
         goldens = json.load(f)
     ks = list(range(2, 15))
     cc = ConsensusClustering(K_range=range(2, 15), random_state=23,
-                             n_iterations=30, store_matrices=True)
+                             n_iterations=30, store_matrices=True,
+                             plot_cdf=False)
     cc.fit(load_corr(transform=True))
     ours = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
     ref = np.array([goldens["kmeans_pac"][str(k)] for k in ks])
@@ -1621,7 +1652,8 @@ def _fit_counted(torch, name, x, **kwargs):
     )
 
     predict = kwargs.pop("predict", False)
-    cc = ConsensusClustering(device="cuda", progress=False, **kwargs)
+    cc = ConsensusClustering(device="cuda", progress=False, **kwargs,
+                             plot_cdf=False)
     reset_launch_counts()
     t0 = time.perf_counter()
     labels = cc.fit_predict(x) if predict else cc.fit(x)
@@ -1689,7 +1721,8 @@ class HostLloyd:
 def _cpu_fit(x, **kwargs):
     from consensus_clustering_tpu_torch import ConsensusClustering
 
-    return ConsensusClustering(device="cpu", progress=False, **kwargs).fit(x)
+    return ConsensusClustering(device="cpu", progress=False, **kwargs,
+                               plot_cdf=False).fit(x)
 
 
 def _against_cpu(name, card, x, ks, band, **kwargs):
@@ -2055,7 +2088,7 @@ def phase_estimate(torch, results):
     cc = ConsensusClustering(
         K_range=ks, n_iterations=ESTIMATE_H, random_state=23, chunk_size=4,
         cluster_batch=16, mode="auto", stream_h_block=100,
-        accum_repr="packed", exact_best_k=True, device="cuda")
+        accum_repr="packed", exact_best_k=True, device="cuda", plot_cdf=False)
     reset_launch_counts()
     t0 = time.perf_counter()
     cc.fit(x)
@@ -2728,7 +2761,7 @@ def _cli_run_steps(torch, results, tmp, report):
         K_range=ks, n_iterations=CLI["h"], random_state=23,
         clusterer_options={"n_init": 3}, store_matrices=False,
         split_init=False, stream_h_block=CLI["block"], accum_repr="packed",
-        fuse_block="on").fit(_cli_data())
+        fuse_block="on", plot_cdf=False).fit(_cli_data())
     same = [res["pac_area"][str(k)] == lib.cdf_at_K_data[k]["pac_area"]
             for k in ks]
     launches = m["kernel_launches"]
@@ -2826,11 +2859,11 @@ def _cli_autotune_steps(torch, tmp, report):
         x = make_blobs(n_samples=n, n_features=d, centers=8,
                        cluster_std=3.0, random_state=0)[0].astype(np.float32)
         tuned = ConsensusClustering(**kwargs, autotune=True,
-                                    calibration_dir=cal).fit(x)
+                                    calibration_dir=cal, plot_cdf=False).fit(x)
         pin = ({"stream_h_block": record["value"]} if knob ==
                "stream_h_block" else {"clusterer_options": {
                    "n_init": 3, "max_iter": record["value"]}})
-        pinned = ConsensusClustering(**kwargs, **pin).fit(x)
+        pinned = ConsensusClustering(**kwargs, **pin, plot_cdf=False).fit(x)
         disclosed = tuned.metrics_["autotune"][knob]
         # A calibrated block is adopted only where its record measured
         # streaming faster than the monolithic sweep (the reference's
@@ -2980,24 +3013,284 @@ def phase_cli(torch, results):
     bands, B1); ``autotune run --shapes smoke`` and ``show``, with the
     API resolving its records; ``serve`` answering the run's job (equal,
     then from the store) with ``serve-admin`` on its files and SIGINT to
-    stop it; ``bench`` and ``lint`` refused."""
+    stop it; ``lint --pack all --json`` on the CI gate's paths (exit 0,
+    no new finding) beside ``bench`` (refused)."""
     report = {"phase": "cli", "nvidia_smi": smi_line(), "steps": {}}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         run_result = _cli_run_steps(torch, results, tmp, report)
         cal = _cli_autotune_steps(torch, tmp, report)
         _cli_serve_steps(tmp, cal, run_result, report)
-    refused = {name: _cli_start([name]) for name in ("bench", "lint")}
-    for name, item in (("bench", "A18"), ("lint", "A15")):
-        code, _, err, wall = _cli_finish(refused[name], 120)
-        report["steps"][name] = {"exit": code, "wall_seconds": wall}
-        check(code != 0 and f"item {item}" in err,
-              f"cli {name}: exit {code}, not refused by {item}: {_tail(err)}")
+    lint = _cli_start(["lint", "--pack", "all", "--json", *LINT_PATHS])
+    bench = _cli_start(["bench"])
+    # bench ends first: each wall is its own process's.
+    code, _, err, wall = _cli_finish(bench, 120)
+    report["steps"]["bench"] = {"exit": code, "wall_seconds": wall}
+    check(code != 0 and "item A18" in err,
+          f"cli bench: exit {code}, not refused by A18: {_tail(err)}")
+    _cli_lint_step(lint, report)
     report["phase_seconds"] = time.perf_counter() - t_phase
     emit(report)
 
 
+#: The paths the repository's CI gate lints (.github/workflows/ci.yml).
+LINT_PATHS = ("consensus_clustering_tpu", "tests", "bench.py", "benchmarks",
+              "examples", "scripts")
+
+
+def _cli_lint_step(started, report):
+    """``lint``'s report: exit 0, no new finding, no error, files read;
+    its wall seconds include the process's torch import."""
+    code, out, err, wall = _cli_finish(started, 300)
+    try:
+        summary = json.loads(out)["summary"]
+    except (ValueError, KeyError):
+        summary = None
+    report["steps"]["lint"] = {"exit": code, "wall_seconds": wall,
+                               "summary": summary}
+    check(code == 0 and summary is not None and summary["new"] == 0
+          and summary["errors"] == 0 and summary["files"] > 0,
+          f"cli lint: exit {code}, summary {summary}: {_tail(err)}")
+
+
 # -- phase 17 ------------------------------------------------------------
+
+#: The plot phase's configuration: the cli phase's dense headline width.
+PLOT = dict(n=5000, d=50, k_hi=20, h=100)
+
+#: ``run --plot-dir`` in a subprocess, through the CLI's ``main`` with
+#: argv, which then writes the process's kernel launches to stderr on a
+#: ``kernel_launches=`` line (before a traceback, if any): the fit's own
+#: are in the JSON, the rest are the heatmap labels'.
+_PLOT_RUN = """
+import json, sys
+from consensus_clustering_tpu_torch.cli import main
+from consensus_clustering_tpu_torch.ops import launch_counts
+try:
+    main(sys.argv[1:])
+finally:
+    print("kernel_launches=" + json.dumps(launch_counts()), file=sys.stderr,
+          flush=True)
+"""
+
+
+def _plot_argv(plot_dir, out):
+    return ["run", "--dataset", "blobs", "--n-samples", str(PLOT["n"]),
+            "--n-features", str(PLOT["d"]), "--k", f"2:{PLOT['k_hi']}",
+            "--iterations", str(PLOT["h"]), "--seed", "23",
+            "--plot-dir", plot_dir, "--out", out]
+
+
+def phase_plot(torch, results):
+    """Plotting at the headline's width, dense (H cut to 100): (a) the
+    library ``fit`` with ``plot_cdf=True`` and ``store_matrices=True``,
+    counts set to 0 just before; (b) ``run --plot-dir`` with the same
+    arguments in a subprocess.  PAC equal per K bit for bit; B1, B2 and
+    the assignment launched in both.  The heatmap's labels, as ``run
+    --plot-dir`` computes them, from (a)'s best-K Cij on the card
+    (spectral above 4096 items: B2 and the assignment launch), ARI
+    against the blobs' truth >= 0.95.  With matplotlib: (a)'s figure
+    draws one curve per K, ``[0] + cdf``; (b)'s three files exist,
+    ``cdf.png`` and ``delta_k.png`` equal to the same figures drawn in
+    this process from (a), the labels' KMeans launched in (b); the
+    heatmap's image array, drawn here from (a), equals Cij ordered by
+    its labels.  Without matplotlib: (a) raises ``ImportError`` naming it
+    after the sweep, its results set, and (b) prints its JSON, then exits
+    non-zero before its labels, as the reference does."""
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+    from consensus_clustering_tpu_torch.models.agglomerative import (
+        consensus_labels_from_cij,
+    )
+    from consensus_clustering_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    try:
+        import matplotlib  # noqa: F401
+
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    report = {"phase": "plot", "nvidia_smi": smi_line(),
+              "matplotlib": has_mpl,
+              "config": f"make_blobs N={PLOT['n']} d={PLOT['d']} centers=8 "
+                        f"std=3 seed 23, H={PLOT['h']} (cut from 500), "
+                        f"K=2..{PLOT['k_hi']}, KMeans(n_init=3), dense, "
+                        "store_matrices"}
+    t_phase = time.perf_counter()
+    ks = list(range(2, PLOT["k_hi"] + 1))
+    cc = ConsensusClustering(
+        K_range=ks, n_iterations=PLOT["h"], random_state=23,
+        clusterer_options={"n_init": 3}, store_matrices=True,
+        split_init=False, plot_cdf=True)
+    x, truth = make_blobs(n_samples=PLOT["n"], n_features=PLOT["d"],
+                          centers=8, cluster_std=3.0, random_state=23)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    error = None
+    try:
+        cc.fit(x.astype(np.float32))
+    except ImportError as e:
+        error = e
+    report["fit_wall_seconds"] = time.perf_counter() - t0
+    launches = launch_counts()
+    report["fit_launches"] = launches
+    _record_launches(results, "plot", launches)
+    check(all(launches[k] > 0 for k in ("hist", "lloyd", "assign")),
+          f"plot fit: B1, B2 or the assignment never launched: {launches}")
+    check(sorted(cc.cdf_at_K_data) == ks,
+          f"plot fit: no results for every K: {sorted(cc.cdf_at_K_data)}")
+    if has_mpl:
+        check(error is None, f"plot fit: raised {error!r}")
+        _plot_figure_checks(cc, report)
+    else:
+        check(error is not None and "matplotlib" in str(error),
+              f"plot fit without matplotlib: raised {error!r}")
+        report["fit_error"] = repr(error)
+        report["figures"] = ("not drawn: matplotlib does not import on this "
+                             "machine; the fit raised ImportError after "
+                             "the sweep, with its results set, as the "
+                             "reference does")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    labels = consensus_labels_from_cij(
+        cc.cdf_at_K_data[cc.best_k_]["cij"], cc.best_k_,
+        linkage=cc.agg_clustering_linkage, method="auto", seed=23,
+        device="cuda")
+    report["labels_seconds"] = time.perf_counter() - t0
+    label_launches = launch_counts()
+    ari = adjusted_rand(labels, truth)
+    report.update(best_k=cc.best_k_, labels_launches=label_launches,
+                  labels_ari=ari, labels_sizes=np.bincount(labels).tolist())
+    _record_launches(results, "plot_labels", label_launches)
+    check(label_launches["lloyd"] > 0 and label_launches["assign"] > 0,
+          f"plot labels: spectral KMeans never launched: {label_launches}")
+    check(ari >= 0.95, f"plot labels: ARI {ari} against the blobs' truth")
+    with tempfile.TemporaryDirectory() as tmp:
+        plot_dir, out = os.path.join(tmp, "plots"), os.path.join(tmp, "r.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PLOT_RUN, *_plot_argv(plot_dir, out)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        report["run_wall_seconds"] = time.perf_counter() - t0
+        report["run_exit"] = proc.returncode
+        res = None
+        if os.path.exists(out):
+            with open(out) as f:
+                res = json.load(f)
+        check(res is not None, f"plot run: no JSON: {_tail(proc.stderr)}")
+        if res is None:
+            emit(report)
+            return
+        same = [res["pac_area"][str(k)] == cc.cdf_at_K_data[k]["pac_area"]
+                for k in ks]
+        report["pac_equal_fit_per_k"] = same
+        check(all(same), "plot run: per-K PAC differs from the fit at "
+                         f"K={[k for k, e in zip(ks, same) if not e]}")
+        fit_launches = res["metrics"]["kernel_launches"]
+        (total,) = [json.loads(line.split("=", 1)[1])
+                    for line in proc.stderr.splitlines()
+                    if line.startswith("kernel_launches=")]
+        run_labels = {k: total[k] - fit_launches[k] for k in total}
+        report["run_launches"] = fit_launches
+        report["run_labels_launches"] = run_labels
+        report["run_seconds"] = res["metrics"]["run_seconds"]
+        _record_launches(results, "plot_run", total)
+        check(all(fit_launches[k] > 0 for k in ("hist", "lloyd", "assign")),
+              f"plot run: B1, B2 or the assignment never launched: "
+              f"{fit_launches}")
+        if has_mpl:
+            # Without matplotlib the run stops at the CDF figure, before
+            # the heatmap's labels, as the reference's does.
+            check(run_labels["lloyd"] > 0 and run_labels["assign"] > 0,
+                  f"plot run: the labels' spectral KMeans never launched "
+                  f"the kernels: {run_labels}")
+            check(proc.returncode == 0,
+                  f"plot run: exit {proc.returncode}: {_tail(proc.stderr)}")
+            _plot_file_checks(cc, labels, plot_dir, tmp, res["best_k"],
+                              report)
+        else:
+            check(proc.returncode != 0
+                  and "matplotlib" in proc.stderr,
+                  f"plot run without matplotlib: exit {proc.returncode}: "
+                  f"{_tail(proc.stderr)}")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit(report)
+
+
+def _plot_figure_checks(cc, report):
+    """(a)'s figure: one curve per K, ``[0] + cdf``; then closed."""
+    import matplotlib.pyplot as plt
+
+    nums = plt.get_fignums()
+    check(len(nums) == 1, f"plot fit: {len(nums)} figures drawn, not 1")
+    if len(nums) != 1:
+        return
+    lines = plt.figure(nums[0]).axes[0].get_lines()
+    ks = sorted(cc.cdf_at_K_data)
+    same = len(lines) == len(ks) and all(
+        list(line.get_ydata()) == [0.0] + list(cc.cdf_at_K_data[k]["cdf"])
+        for line, k in zip(lines, ks))
+    report["fit_figure_curves_equal_cdf"] = same
+    check(same, "plot fit: the figure's curves differ from [0] + cdf")
+    plt.close("all")
+
+
+def _plot_file_checks(cc, labels, plot_dir, tmp, best_k, report):
+    """(b)'s files against the same figures drawn here from (a): the curve
+    figures byte for byte; the heatmap from (a)'s best-K Cij and labels
+    computed on the card, its image array equal to Cij in label order."""
+    import matplotlib.pyplot as plt
+
+    from consensus_clustering_tpu_torch import cli
+    from consensus_clustering_tpu_torch.utils import plotting
+
+    names = sorted(os.listdir(plot_dir))
+    expect = sorted(["cdf.png", "delta_k.png",
+                     f"consensus_matrix_K{best_k}.png"])
+    sizes = {n: os.path.getsize(os.path.join(plot_dir, n)) for n in names}
+    report["files"] = sizes
+    check(names == expect and all(sizes.values()),
+          f"plot run: files {sizes}, expected {expect}")
+    check(best_k == cc.best_k_, f"plot run: best K {best_k} != {cc.best_k_}")
+    here = os.path.join(tmp, "here")
+    heatmap, drawn = plotting.plot_consensus_matrix, []
+
+    def spy(*args, **kwargs):
+        drawn.append(args)
+        return heatmap(*args, **kwargs)
+
+    t0 = time.perf_counter()
+    plotting.plot_consensus_matrix = spy
+    try:
+        cli._write_figures(cc, here, "cuda")
+    finally:
+        plotting.plot_consensus_matrix = heatmap
+    report["figures_in_process_seconds"] = time.perf_counter() - t0
+    for name in expect:
+        with open(os.path.join(plot_dir, name), "rb") as a, \
+                open(os.path.join(here, name), "rb") as b:
+            same = a.read() == b.read()
+        report[f"{name}_equal_in_process"] = same
+        # The heatmap's bytes also rest on the card's spectral labels
+        # being the same in two processes: reported, not held.
+        if not name.startswith("consensus_matrix"):
+            check(same, f"plot run: {name} differs from the figure drawn "
+                        "here")
+    cij = cc.cdf_at_K_data[best_k]["cij"]
+    check(len(drawn) == 1 and np.array_equal(drawn[0][1], labels),
+          "plot: the heatmap's labels differ from consensus_labels_from_cij")
+    order = np.argsort(labels, kind="stable")
+    fig = plotting.plot_consensus_matrix(cij, labels, show=False)
+    image = np.asarray(fig.axes[0].get_images()[0].get_array())
+    same = np.array_equal(image, np.asarray(cij)[np.ix_(order, order)])
+    report["heatmap_equal_cij_in_label_order"] = same
+    check(same, "plot: the heatmap's image is not Cij in label order")
+    plt.close("all")
+
+
+# -- phase 18 ------------------------------------------------------------
 
 #: The mesh phase's cuts: the estimator's H (and block) at N = 100,000, the
 #: processes' sweep H and stream H, and the one-lane-group case's H, Ks and
@@ -3218,8 +3511,9 @@ def _mesh_one_lane_group(torch, card, resample_mesh):
               random_state=23, cluster_batch=MESH["lane_batch"],
               chunk_size=4, store_matrices=True)
     t0 = time.perf_counter()
-    one = ConsensusClustering(device=card, **kw).fit(x)
-    sharded = ConsensusClustering(mesh=resample_mesh([card] * 2), **kw).fit(x)
+    one = ConsensusClustering(device=card, **kw, plot_cdf=False).fit(x)
+    sharded = ConsensusClustering(mesh=resample_mesh([card] * 2), **kw,
+                                  plot_cdf=False).fit(x)
     same = {k: bool(np.array_equal(one.cdf_at_K_data[k]["mij"],
                                    sharded.cdf_at_K_data[k]["mij"]))
             for k in MESH["lane_ks"]}
@@ -3369,6 +3663,8 @@ def main(argv=None):
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
 
+    # Figures render off screen, here and in every subprocess.
+    os.environ["MPLBACKEND"] = "Agg"
     import torch
 
     if not torch.cuda.is_available():
@@ -3410,6 +3706,8 @@ def main(argv=None):
         phase_serve(torch, results)
     if "cli" in phases:
         phase_cli(torch, results)
+    if "plot" in phases:
+        phase_plot(torch, results)
     if "mesh" in phases:
         phase_mesh(torch, results)
     if "mesh_cards" in phases:

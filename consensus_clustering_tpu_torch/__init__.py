@@ -16,7 +16,9 @@ and the final assignment, alone and fused with packing
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper takes its plain PyTorch version.  The
 command line is ``python -m consensus_clustering_tpu_torch run | serve |
-serve-admin | autotune`` (:mod:`.cli`).  The package imports neither
+serve-admin | lint | autotune`` (:mod:`.cli`); figures come from
+:mod:`.utils.plotting` (matplotlib, imported when a figure is drawn) and
+the static analyser from :mod:`.lint`.  The package imports neither
 ``jax`` nor ``consensus_clustering_tpu``.
 
 Importing the package pins full-f32 matrix products: every distance GEMM of

@@ -55,9 +55,13 @@ primary's resolution everywhere, only the primary writes
 ``checkpoint_dir``, and ``metrics_["processes"]`` counts the processes
 (``device_memory`` is each process's own).
 
-Plotting, which this package does not have yet, raises
-``NotImplementedError`` naming the ROADMAP item that ports it (A15).
-Unlike the reference, ``plot_cdf`` defaults to False.
+``plot_cdf`` defaults to True, as in the reference: at the end of every
+``fit`` (exact, streamed, resumed, in K batches or estimated) the CDF fan
+is drawn with :func:`.utils.plotting.plot_cdf` and shown, after
+``sweep_complete`` is emitted.  matplotlib is imported only then, so
+without it such a fit raises ``ImportError`` after the sweep, with its
+results set.  Under a mesh across processes every process that calls
+``fit`` draws.
 """
 
 from __future__ import annotations
@@ -74,7 +78,6 @@ from consensus_clustering_tpu_torch.config import (
     MODES,
     SweepConfig,
     autotune_stream_block,
-    not_ported,
     validate_accum_repr,
     validate_fuse_block,
 )
@@ -142,7 +145,9 @@ class ConsensusClustering:
     K_range, n_iterations, subsampling, random_state, PAC_interval,
     consensus_matrix_analysis, agg_clustering_linkage : as the reference.
     plot_cdf : bool
-        Must be False: plotting is not ported (ROADMAP A15).
+        Draw (and show) the per-K CDF fan at the end of ``fit``, as the
+        reference does (default True); every process of a mesh across
+        processes draws its own.
     n_jobs : int
         Threads for the host backend's labelling loop.
     parallelization_method, memmap_folder :
@@ -253,7 +258,7 @@ class ConsensusClustering:
         random_state: Optional[int] = None,
         consensus_matrix_analysis: str = "PAC",
         PAC_interval=(0.1, 0.9),
-        plot_cdf: bool = False,
+        plot_cdf: bool = True,
         agg_clustering_linkage: str = "average",
         n_jobs: int = 1,
         parallelization_method: str = "multithreading",
@@ -293,8 +298,6 @@ class ConsensusClustering:
         n_pairs: Optional[int] = None,
         exact_best_k: bool = False,
     ):
-        if plot_cdf:
-            raise not_ported("plot_cdf=True (plotting)", "A15")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(
                 "mesh must be a consensus_clustering_tpu_torch Mesh "
@@ -592,6 +595,7 @@ class ConsensusClustering:
                          for k, v in self.cdf_at_K_data.items()},
             "best_k": self.best_k_,
         })
+        self._draw_cdf()
         return self
 
     # -- autotune --------------------------------------------------------
@@ -899,7 +903,15 @@ class ConsensusClustering:
                          for k, v in self.cdf_at_K_data.items()},
             "best_k": self.best_k_,
         })
+        self._draw_cdf()
         return self
+
+    def _draw_cdf(self):
+        """The reference's end of ``fit``: the CDF fan when ``plot_cdf``."""
+        if self.plot_cdf:
+            from consensus_clustering_tpu_torch.utils.plotting import plot_cdf
+
+            plot_cdf(self.cdf_at_K_data, self.PAC_interval)
 
     def _device(self):
         """The device results are assembled on: the mesh's primary one,

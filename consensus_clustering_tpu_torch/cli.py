@@ -5,14 +5,17 @@
         --iterations 100 --seed 23 --out results.json
     python -m consensus_clustering_tpu_torch serve --port 8000
     python -m consensus_clustering_tpu_torch serve-admin --store-dir DIR list
+    python -m consensus_clustering_tpu_torch lint                # docs/LINT.md
     python -m consensus_clustering_tpu_torch autotune run --store DIR
 
 The reference's subcommands with its flags, result JSON and exit codes.
 ``run``, ``serve`` and ``autotune run`` compute on ``cuda`` unless given
 ``--device cpu`` (without a GPU and without it they exit non-zero);
-nothing falls back to the CPU or to a kernel's plain version.  Flags that
-need a part the port does not have yet exit non-zero naming its ROADMAP
-item: ``--plot-dir`` and ``lint`` (A15), and ``bench`` (A18: the repo's
+nothing falls back to the CPU or to a kernel's plain version.  ``run
+--plot-dir DIR`` writes the CDF fan, the Δ(K) elbow and the best K's
+consensus-matrix heatmap after the JSON.  ``lint`` is the reference's
+static analyser, copied: it builds no kernel and touches no CUDA.
+``bench`` exits non-zero naming ROADMAP item A18 (the repo's
 ``bench.py`` measures the reference package).  ``run --k-shards/
 --row-shards`` shard the sweep over a mesh of every visible card, or,
 with ``--device`` naming one device, over that device repeated (a
@@ -121,8 +124,6 @@ def _mesh(args, device):
 
 
 def cmd_run(args):
-    if args.plot_dir:
-        _refuse("--plot-dir (plotting)", "A15")
     if args.use_pallas == "off" or args.packed_kernel == "off":
         raise SystemExit(
             "--use-pallas off / --packed-kernel off would run the kernels' "
@@ -143,8 +144,13 @@ def cmd_run(args):
             file=sys.stderr,
         )
     mesh = _mesh(args, device)
-    # "auto" keeps them for the heatmap of --plot-dir, refused above.
-    store_matrices = args.store_matrices == "on"
+    # The heatmap needs Cij, so --plot-dir implies keeping matrices
+    # unless they were explicitly switched off — in which case only the
+    # curve figures are written.  Labels for ordering the heatmap are
+    # extracted lazily for the best K alone (consensus_labels_from_cij),
+    # not computed per swept K.
+    store_matrices = {"on": True, "off": False}[args.store_matrices] \
+        if args.store_matrices != "auto" else bool(args.plot_dir)
     progress_cb = None
     if args.progress:
         # With a checkpoint dir the fit may resume and sweep only the
@@ -164,7 +170,7 @@ def cmd_run(args):
     if args.mode == "estimate" and store_matrices:
         raise SystemExit(
             "--mode estimate never materialises the consensus matrices "
-            "(that is the point); drop --store-matrices on"
+            "(that is the point); drop --plot-dir / --store-matrices on"
         )
     if args.n_pairs is not None and args.mode == "exact":
         raise SystemExit(
@@ -178,8 +184,8 @@ def cmd_run(args):
     if args.adaptive is not None and store_matrices:
         raise SystemExit(
             "--adaptive is curves-only (an early-stopped run's matrices "
-            "would disagree with its h_effective); drop --store-matrices "
-            "on, or run without --adaptive"
+            "would disagree with its h_effective); drop --plot-dir / "
+            "--store-matrices on, or run without --adaptive"
         )
 
     try:
@@ -244,6 +250,62 @@ def cmd_run(args):
         print(f"best_k={cc.best_k_}  -> {args.out}")
     else:
         print(payload)
+
+    # After the JSON: a plotting failure (missing matplotlib extra,
+    # unwritable dir) must not discard a completed sweep's results.
+    if args.plot_dir:
+        _write_figures(cc, args.plot_dir, device)
+
+
+def _write_figures(cc, plot_dir: str, device) -> None:
+    """Save the CDF fan, the Δ(K) elbow and — when Cij was kept — the
+    best-K consensus-matrix heatmap into ``plot_dir``; the heatmap's
+    labels are computed on ``device``."""
+    import os
+
+    from consensus_clustering_tpu_torch.utils.plotting import (
+        plot_cdf,
+        plot_consensus_matrix,
+        plot_delta_k,
+    )
+
+    os.makedirs(plot_dir, exist_ok=True)
+    plot_cdf(
+        cc.cdf_at_K_data, pac_interval=cc.PAC_interval, show=False,
+        save_path=os.path.join(plot_dir, "cdf.png"),
+    )
+    # areas_/delta_k_ follow the constructor's K_range order, which a
+    # comma --k list may leave unsorted: keep x and y aligned.
+    plot_delta_k(
+        list(cc.K_range), cc.areas_, cc.delta_k_, show=False,
+        save_path=os.path.join(plot_dir, "delta_k.png"),
+    )
+    best = cc.cdf_at_K_data[cc.best_k_]
+    if best.get("cij") is not None:
+        from consensus_clustering_tpu_torch.models.agglomerative import (
+            consensus_labels_from_cij,
+        )
+
+        # Best-K labels only (one extraction), not per swept K; the
+        # seed matters on the large-N spectral path (method="auto"),
+        # where labels must follow the run's --seed like fit_predict.
+        labels = best["consensus_labels"]
+        if not len(labels):
+            labels = consensus_labels_from_cij(
+                best["cij"], cc.best_k_,
+                linkage=cc.agg_clustering_linkage,
+                method="auto",
+                seed=int(cc.random_state),
+                device=device,
+            )
+        plot_consensus_matrix(
+            best["cij"],
+            labels,
+            show=False,
+            save_path=os.path.join(
+                plot_dir, f"consensus_matrix_K{cc.best_k_}.png"
+            ),
+        )
 
 
 def _build_executor(args, device):
@@ -469,6 +531,12 @@ def cmd_serve(args):
         service.stop()
 
 
+def cmd_lint(args):
+    from consensus_clustering_tpu_torch.lint.runner import run as lint_run
+
+    raise SystemExit(lint_run(args))
+
+
 def cmd_autotune(args):
     from consensus_clustering_tpu_torch.autotune.cli import (
         cmd_autotune as run,
@@ -596,10 +664,11 @@ def main(argv=None):
                      "best-K reporting carries no estimation band")
     run.add_argument("--store-matrices", choices=["auto", "on", "off"],
                      default="auto",
-                     help="keep Iij/Mij/Cij in results (auto: off, as "
-                     "--plot-dir is not ported)")
+                     help="keep Iij/Mij/Cij in results (auto: on "
+                     "only with --plot-dir, for the heatmap)")
     run.add_argument("--plot-dir", default=None,
-                     help="plotting: not ported (ROADMAP A15)")
+                     help="write cdf.png, delta_k.png and the best K's "
+                     "consensus-matrix heatmap here, after the JSON")
     run.add_argument("--out", default=None)
     run.set_defaults(fn=cmd_run)
 
@@ -831,9 +900,13 @@ def main(argv=None):
     admin_p.set_defaults(fn=lambda a: sys.exit(cmd_serve_admin(a)))
 
     lint_p = sub.add_parser(
-        "lint", help="not ported (ROADMAP A15): the JAX-aware analyzer")
-    lint_p.set_defaults(fn=lambda a: _refuse(
-        "the lint subcommand (the JAX-aware static analyzer)", "A15"))
+        "lint",
+        help="run jaxlint, the JAX-aware static analyzer (docs/LINT.md)",
+    )
+    from consensus_clustering_tpu_torch.lint.runner import add_arguments
+
+    add_arguments(lint_p)
+    lint_p.set_defaults(fn=cmd_lint)
 
     autotune_p = sub.add_parser(
         "autotune",
@@ -847,9 +920,9 @@ def main(argv=None):
     autotune_p.set_defaults(fn=cmd_autotune)
 
     args, extra = parser.parse_known_args(argv)
-    if extra and args.cmd not in ("bench", "lint"):
-        # The two refused subcommands take whatever the reference's
-        # take; every other subcommand parses strictly.
+    if extra and args.cmd != "bench":
+        # The refused subcommand takes whatever the reference's takes;
+        # every other subcommand parses strictly.
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd in ("run", "serve", "autotune"):
         # After parsing: --help and argument errors build nothing.

@@ -2,9 +2,8 @@
 ``fit_predict`` on the port, on the CPU.
 
 - Every keyword of the reference constructor is a keyword of the port's
-  (which adds ``device``); the ones whose engines are not ported raise
-  ``NotImplementedError`` naming their ROADMAP item, after the reference's
-  own ``ValueError``s.
+  (which adds ``device``), with the reference's defaults (``plot_cdf=True``
+  among them), and the reference's own ``ValueError``s are kept.
 - ``k_batch_size`` equals the one-batch fit bit for bit (monolithic and
   streamed), and so does a fit resumed from a batch's checkpoint.
 - ``metrics_path`` writes the reference's events with its fields.
@@ -51,7 +50,7 @@ def _fit(x, **kwargs):
     base = dict(K_range=(2, 3, 4, 5), n_iterations=12, random_state=9,
                 store_matrices=True, device="cpu")
     base.update(kwargs)
-    return ConsensusClustering(**base).fit(x)
+    return ConsensusClustering(**base, plot_cdf=False).fit(x)
 
 
 def _assert_same(a, b):
@@ -74,14 +73,6 @@ def test_every_reference_keyword_is_a_port_keyword():
         assert port[name].kind == param.kind, name
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(plot_cdf=True), "A15"),
-])
-def test_unported_keywords_name_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ConsensusClustering(random_state=0, **kwargs)
-
-
 @pytest.mark.parametrize("kwargs,match", [
     (dict(n_pairs=64), "only applies"),
     (dict(n_pairs=0), "n_pairs must be"),
@@ -91,14 +82,14 @@ def test_unported_keywords_name_their_item(kwargs, item):
 ])
 def test_reference_value_errors_are_kept(kwargs, match):
     with pytest.raises(ValueError, match=match):
-        JaxCC(random_state=0, **kwargs)
+        JaxCC(random_state=0, **kwargs, plot_cdf=False)
     with pytest.raises(ValueError, match=match):
-        ConsensusClustering(random_state=0, **kwargs)
+        ConsensusClustering(random_state=0, **kwargs, plot_cdf=False)
 
 
 def test_use_pallas_false_is_refused():
     with pytest.raises(ValueError, match="use_pallas=False"):
-        ConsensusClustering(use_pallas=False)
+        ConsensusClustering(use_pallas=False, plot_cdf=False)
 
 
 def test_ported_keywords_construct(tmp_path):
@@ -106,25 +97,29 @@ def test_ported_keywords_construct(tmp_path):
         clusterer=GaussianMixture(), compute_consensus_labels=True,
         progress=False, use_pallas=True, profile_dir=str(tmp_path / "p"),
         metrics_path=str(tmp_path / "m.jsonl"), k_batch_size=2,
-        split_init=None, n_jobs=2, memmap_folder=str(tmp_path))
+        split_init=None, n_jobs=2, memmap_folder=str(tmp_path), plot_cdf=False)
     assert cc.progress is False and cc.k_batch_size == 2
     assert not os.path.exists(tmp_path / "p")  # construction writes nothing
-    est = ConsensusClustering(mode="estimate", n_pairs=64, exact_best_k=True)
+    est = ConsensusClustering(mode="estimate", n_pairs=64, exact_best_k=True,
+                              plot_cdf=False)
     assert (est.mode, est.n_pairs, est.exact_best_k) == ("estimate", 64, True)
 
 
 def test_default_n_init_is_dropped_only_where_there_is_none():
-    cc = ConsensusClustering(clusterer=AgglomerativeClustering("average"))
+    cc = ConsensusClustering(clusterer=AgglomerativeClustering("average"),
+                             plot_cdf=False)
     clusterer, is_host = cc._resolve_clusterer()
     assert not is_host and clusterer == AgglomerativeClustering("average")
-    assert ConsensusClustering(clusterer=GaussianMixture()
+    assert ConsensusClustering(clusterer=GaussianMixture(), plot_cdf=False
                                )._resolve_clusterer()[0].n_init == 3
     explicit = ConsensusClustering(clusterer=AgglomerativeClustering(),
-                                   clusterer_options={"n_init": 3})
+                                   clusterer_options={"n_init": 3},
+                                   plot_cdf=False)
     with pytest.raises(ValueError, match="invalid clusterer option"):
         explicit._resolve_clusterer()
     with pytest.raises(TypeError, match="neither"):
-        ConsensusClustering(clusterer=object())._resolve_clusterer()
+        ConsensusClustering(clusterer=object(),
+                            plot_cdf=False)._resolve_clusterer()
 
 
 # -- k_batch_size --------------------------------------------------------
@@ -178,7 +173,7 @@ def _events(path):
 def test_metrics_path_events_match_the_reference(blobs3, tmp_path):
     x, _ = blobs3
     runs = {}
-    for name, cls, extra in (("ref", JaxCC, dict(plot_cdf=False)),
+    for name, cls, extra in (("ref", JaxCC, {}),
                              ("port", ConsensusClustering,
                               dict(device="cpu"))):
         for engine, kwargs in (("mono", dict(k_batch_size=1)),
@@ -186,7 +181,7 @@ def test_metrics_path_events_match_the_reference(blobs3, tmp_path):
             path = str(tmp_path / f"{name}-{engine}.jsonl")
             cls(K_range=(2, 3), n_iterations=8, random_state=3,
                 metrics_path=path, store_matrices=False, **kwargs,
-                **extra).fit(x)
+                **extra, plot_cdf=False).fit(x)
             runs[name, engine] = _events(path)
     for engine in ("mono", "stream"):
         ref, port = runs["ref", engine], runs["port", engine]
@@ -228,7 +223,7 @@ def test_fit_predict(blobs3):
     x, y = blobs3
     cc = ConsensusClustering(K_range=(2, 3, 4), n_iterations=12,
                              random_state=9, store_matrices=True,
-                             device="cpu")
+                             device="cpu", plot_cdf=False)
     labels = cc.fit_predict(x)
     assert cc.best_k_ == 3
     assert adjusted_rand_score(y, labels) == 1.0
@@ -241,7 +236,8 @@ def test_fit_predict_raises_before_the_sweep(blobs3, monkeypatch):
     monkeypatch.setattr(port_sweep, "run_sweep",
                         lambda *a, **k: pytest.fail("the sweep ran"))
     cc = ConsensusClustering(K_range=(2, 3), random_state=0,
-                             store_matrices=False, device="cpu")
+                             store_matrices=False, device="cpu",
+                             plot_cdf=False)
     with pytest.raises(ValueError, match="fit_predict needs the consensus"):
         cc.fit_predict(x)
 
@@ -250,8 +246,8 @@ def test_fit_predict_after_a_resume_without_matrices(blobs3, tmp_path):  # jaxli
     x, _ = blobs3
     kwargs = dict(K_range=(2, 3), n_iterations=6, random_state=0,
                   device="cpu", checkpoint_dir=str(tmp_path))
-    ConsensusClustering(store_matrices=False, **kwargs).fit(x)
-    cc = ConsensusClustering(store_matrices=True, **kwargs)
+    ConsensusClustering(store_matrices=False, **kwargs, plot_cdf=False).fit(x)
+    cc = ConsensusClustering(store_matrices=True, **kwargs, plot_cdf=False)
     with pytest.raises(ValueError, match="resumed from checkpoints"):
         cc.fit_predict(x)
     assert cc.metrics_["resumed_from_checkpoint"] is True

@@ -366,7 +366,7 @@ def test_host_backend_is_an_autotune_noop(tmp_path, autotune):  # jaxlint: disab
         clusterer=sklearn.cluster.KMeans(n_init=2), K_range=(2, 3),
         n_iterations=5, random_state=7, progress=False, device="cpu",
         store_matrices=False, autotune=autotune,
-        calibration_dir=str(tmp_path)).fit(_two_blobs())
+        calibration_dir=str(tmp_path), plot_cdf=False).fit(_two_blobs())
     assert cc.autotune_ is None and "autotune" not in cc.metrics_
 
 
@@ -383,7 +383,8 @@ def test_device_fit_discloses_every_tier(tmp_path):  # jaxlint: disable=JL018 --
                   device="cpu", store_matrices=False)
     x = _two_blobs()
     cc = ConsensusClustering(**kwargs, split_init=False, autotune=True,
-                             calibration_dir=str(tmp_path)).fit(x)
+                             calibration_dir=str(tmp_path),
+                             plot_cdf=False).fit(x)
     disclosed = cc.metrics_["autotune"]
     assert cc.autotune_ == disclosed
     assert disclosed["cluster_batch"]["provenance"] == PROVENANCE_CALIBRATED
@@ -396,7 +397,7 @@ def test_device_fit_discloses_every_tier(tmp_path):  # jaxlint: disable=JL018 --
     assert disclosed["max_iter"]["provenance"] == PROVENANCE_CALIBRATED
     pinned = ConsensusClustering(
         **kwargs, clusterer_options={"n_init": 3, "max_iter": 25},
-        cluster_batch=3).fit(x)
+        cluster_batch=3, plot_cdf=False).fit(x)
     assert [cc.cdf_at_K_data[k]["pac_area"] for k in (2, 3)] == [
         pinned.cdf_at_K_data[k]["pac_area"] for k in (2, 3)]
     # A record whose streaming beat the monolithic sweep is adopted.
@@ -404,9 +405,10 @@ def test_device_fit_discloses_every_tier(tmp_path):  # jaxlint: disable=JL018 --
                            parity=_passing_parity(), rate=150.0,
                            baseline_rate=100.0, env=store.env))
     streamed = ConsensusClustering(**kwargs, autotune=True,
-                                   calibration_dir=str(tmp_path)).fit(x)
+                                   calibration_dir=str(tmp_path),
+                                   plot_cdf=False).fit(x)
     assert streamed.metrics_["autotune"]["stream_h_block"]["provenance"] == (
         PROVENANCE_CALIBRATED)
     assert streamed.metrics_["streaming"]["h_block"] == 3
-    off = ConsensusClustering(**kwargs).fit(x)
+    off = ConsensusClustering(**kwargs, plot_cdf=False).fit(x)
     assert off.autotune_ is None and "autotune" not in off.metrics_

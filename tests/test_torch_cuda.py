@@ -7,6 +7,9 @@ tests/test_torch_cuda.py -q``: the suite's conftest imports JAX, which the
 port's machine need not have, and nothing here uses its fixtures.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -168,7 +171,7 @@ def test_small_fit_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; ski
                       cluster_std=1.5, random_state=2)
     fits = [
         ConsensusClustering(K_range=range(2, 5), n_iterations=20,
-                            random_state=3, device=dev).fit(x)
+                            random_state=3, device=dev, plot_cdf=False).fit(x)
         for dev in ("cuda", "cpu")
     ]
     np.testing.assert_array_equal(fits[0].cdf_at_K_data[2]["iij"],
@@ -258,9 +261,9 @@ def test_streamed_packed_fit_equals_monolithic_on_the_card(cuda):  # jaxlint: di
                       cluster_std=1.5, random_state=2)
     kwargs = dict(K_range=range(2, 5), n_iterations=20, random_state=3,
                   device="cuda")
-    mono = ConsensusClustering(**kwargs).fit(x)
+    mono = ConsensusClustering(**kwargs, plot_cdf=False).fit(x)
     stream = ConsensusClustering(**kwargs, stream_h_block=6,
-                                 accum_repr="packed").fit(x)
+                                 accum_repr="packed", plot_cdf=False).fit(x)
     assert stream.metrics_["timing"] == {
         "packed_kernel": "cuda", "fuse_block": "fused",
         "fused_kernel": "cuda"}
@@ -367,7 +370,8 @@ def _fits_on_both(x, **kwargs):
     for dev in ("cuda", "cpu"):
         reset_launch_counts()
         fits[dev] = ConsensusClustering(device=dev, store_matrices=True,
-                                        progress=False, **kwargs).fit(x)
+                                        progress=False, **kwargs,
+                                        plot_cdf=False).fit(x)
         launches[dev] = launch_counts()
     return fits, launches
 
@@ -510,7 +514,8 @@ def test_clusterers_group_invariantly_on_the_card(cuda):  # jaxlint: disable=JL0
         fits = [ConsensusClustering(
             clusterer=clusterer, clusterer_options={}, K_range=(2, 4, 6),
             n_iterations=13, random_state=23, store_matrices=True,
-            cluster_batch=batch, device=cuda).fit(x) for batch in (None, 4)]
+            cluster_batch=batch, device=cuda,
+            plot_cdf=False).fit(x) for batch in (None, 4)]
         for k in (2, 4, 6):
             np.testing.assert_array_equal(fits[0].cdf_at_K_data[k]["mij"],
                                           fits[1].cdf_at_K_data[k]["mij"])
@@ -664,14 +669,51 @@ def test_virtual_mesh_on_the_card_equals_one_device(cuda, shape, accum_repr,  # 
     kw = dict(K_range=(2, 3, 4, 5), n_iterations=45, random_state=7,
               cluster_batch=8, accum_repr=accum_repr, stream_h_block=stream,
               store_matrices=True)
-    one = ConsensusClustering(device=cuda, **kw).fit(x)
+    one = ConsensusClustering(device=cuda, **kw, plot_cdf=False).fit(x)
     k, h, n = shape
     mesh = resample_mesh([torch.device("cuda", 0)] * (k * h * n),
                          row_shards=n, k_shards=k)
-    got = ConsensusClustering(mesh=mesh, k_interleave=k > 1, **kw).fit(x)
+    got = ConsensusClustering(mesh=mesh, k_interleave=k > 1, **kw,
+                              plot_cdf=False).fit(x)
     for kk in kw["K_range"]:
         for name in ("pac_area", "hist", "mij", "iij", "cij"):
             np.testing.assert_array_equal(got.cdf_at_K_data[kk][name],
                                           one.cdf_at_K_data[kk][name])
     assert got.metrics_["kernel_launches"]["hist" if stream is None
                                            else "popcount"] > 0
+
+
+def test_plotting_fit_on_the_card(cuda, tmp_path, monkeypatch):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU
+    """``plot_cdf=True`` on the card draws the fit's curves once, after
+    the kernels ran, and ``run --plot-dir`` labels the heatmap there."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
+    from consensus_clustering_tpu_torch.cli import main
+    from consensus_clustering_tpu_torch.ops import reset_launch_counts
+
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda *a, **k: shown.append(1))
+    plt.close("all")
+    x, _ = make_blobs(n_samples=301, n_features=8, centers=4,
+                      cluster_std=2.0, random_state=5)
+    reset_launch_counts()
+    cc = ConsensusClustering(K_range=(2, 3, 4, 5), n_iterations=20,
+                             random_state=7, device=cuda,
+                             plot_cdf=True).fit(x)
+    assert cc.metrics_["kernel_launches"]["hist"] == 4
+    (num,) = plt.get_fignums()
+    assert [list(line.get_ydata()) for line in plt.figure(num).axes[0]
+            .get_lines()] == [[0.0] + list(cc.cdf_at_K_data[k]["cdf"])
+                              for k in (2, 3, 4, 5)]
+    assert shown == [1]
+    plt.close("all")
+    main(["run", "--dataset", "blobs", "--n-samples", "301", "--n-features",
+          "8", "--k", "2:5", "--iterations", "20", "--seed", "7",
+          "--out", str(tmp_path / "run.json"),
+          "--plot-dir", str(tmp_path / "plots")])
+    best = json.loads((tmp_path / "run.json").read_text())["best_k"]
+    assert sorted(os.listdir(tmp_path / "plots")) == [
+        "cdf.png", f"consensus_matrix_K{best}.png", "delta_k.png"]

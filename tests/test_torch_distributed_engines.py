@@ -185,7 +185,8 @@ if "extras" in spec:
     fit = ConsensusClustering(
         K_range=KS, n_iterations=H, random_state=SEED, mesh=mesh,
         mode="auto", store_matrices=False, n_pairs=PAIRS,
-        stream_h_block=8, cluster_batch=4, exact_best_k=True).fit(x)
+        stream_h_block=8, cluster_batch=4, exact_best_k=True,
+        plot_cdf=False).fit(x)
     meta["auto"] = {"mode": fit.metrics_.get("mode", "exact"),
                     "auto": fit.metrics_.get("auto"),
                     "processes": fit.metrics_.get("processes"),

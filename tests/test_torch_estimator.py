@@ -390,7 +390,7 @@ def _fit(x, **kw):
     args = dict(K_range=KS, n_iterations=H, random_state=SEED,
                 clusterer_options={"n_init": 2}, stream_h_block=8)
     args.update(kw)
-    return ConsensusClustering(device="cpu", **args).fit(x)
+    return ConsensusClustering(device="cpu", **args, plot_cdf=False).fit(x)
 
 
 def test_estimate_mode_fills_reference_keys(data):  # jaxlint: disable=JL018 -- CPU port and reference, N=120, H=32
@@ -460,11 +460,11 @@ def test_estimate_mode_value_errors(data):  # jaxlint: disable=JL018 -- raises b
         _fit(data, mode="estimate", clusterer=SkKMeans(n_init=1),
              clusterer_options={})
     with pytest.raises(ValueError, match="only applies"):
-        ConsensusClustering(n_pairs=100)
+        ConsensusClustering(n_pairs=100, plot_cdf=False)
     for bad in (0, -3, True, 2.5):
         with pytest.raises(ValueError, match="n_pairs"):
-            ConsensusClustering(mode="estimate", n_pairs=bad)
+            ConsensusClustering(mode="estimate", n_pairs=bad, plot_cdf=False)
     with pytest.raises(ValueError, match="mode must be"):
-        ConsensusClustering(mode="fast")
+        ConsensusClustering(mode="fast", plot_cdf=False)
     with pytest.raises(ValueError, match="serving mode"):
-        ConsensusClustering(mode="progressive")
+        ConsensusClustering(mode="progressive", plot_cdf=False)

@@ -87,7 +87,7 @@ def test_api_host_path_equals_the_reference_api(corr):  # jaxlint: disable=JL018
     kwargs = dict(clusterer=SkKMeans(), K_range=(2, 3, 5), n_iterations=12,
                   random_state=23, store_matrices=True, progress=False)
     ref = JaxCC(plot_cdf=False, **kwargs).fit(corr)
-    got = ConsensusClustering(device="cpu", **kwargs).fit(corr)
+    got = ConsensusClustering(device="cpu", **kwargs, plot_cdf=False).fit(corr)
     for k in (2, 3, 5):
         np.testing.assert_array_equal(got.cdf_at_K_data[k]["mij"],
                                       ref.cdf_at_K_data[k]["mij"])
@@ -101,7 +101,7 @@ def test_api_host_path_equals_the_reference_api(corr):  # jaxlint: disable=JL018
 def test_sklearn_gmm_uses_n_components_and_drops_the_default_n_init(corr):  # jaxlint: disable=JL018 -- corr.csv, H=6 on the host
     cc = ConsensusClustering(clusterer=SkGMM(covariance_type="diag"),
                              K_range=(2, 3), n_iterations=6, random_state=1,
-                             device="cpu", progress=False)
+                             device="cpu", progress=False, plot_cdf=False)
     clusterer, is_host = cc._resolve_clusterer()
     assert is_host and isinstance(clusterer, HostClusterer)
     assert clusterer.options == {"n_init": 3}  # GaussianMixture has n_init
@@ -115,7 +115,8 @@ def test_host_backend_logs_what_it_ignores(corr, caplog):  # jaxlint: disable=JL
     cc = ConsensusClustering(
         clusterer=SkKMeans(n_init=1), K_range=(2,), n_iterations=4,
         random_state=1, device="cpu", progress=False, stream_h_block=2,
-        accum_repr="packed", progress_callback=lambda k, pac: None)
+        accum_repr="packed", progress_callback=lambda k, pac: None,
+        plot_cdf=False)
     with caplog.at_level(logging.INFO):
         cc.fit(corr)
     text = caplog.text

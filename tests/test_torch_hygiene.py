@@ -3,16 +3,19 @@
 - The package imports neither ``jax`` nor ``consensus_clustering_tpu``
   (checked with ``ast`` and in a subprocess where both are poisoned).
 - ``fit`` without ``device`` raises when no GPU is visible.
-- Features not ported yet raise ``NotImplementedError``.
 - The subprocess also drives every clusterer (GMM, agglomerative,
   spectral, an sklearn estimator on the host backend), ``k_batch_size``,
   consensus labels and ``fit_predict``, the estimator (``mode="estimate"``
   and ``"auto"``, ``exact_best_k``), an append on a plane store, a
   ``ConsensusService`` answering one job over HTTP, the command line
-  (``run``, ``autotune run``, ``serve-admin``) and ``autotune=True``; the
-  ``ast`` scan covers every subpackage (``estimator/``, ``append/``,
-  ``serve/``, ``serve/sched/``, ``serve/fleet/``, ``obs/``,
-  ``autotune/`` and ``utils/`` included) and the command line's modules.
+  (``run``, ``autotune run``, ``serve-admin``, ``lint``),
+  ``autotune=True`` and a plotting ``fit`` under Agg; the ``ast`` scan
+  covers every subpackage (``estimator/``, ``append/``, ``serve/``,
+  ``serve/sched/``, ``serve/fleet/``, ``obs/``, ``autotune/``,
+  ``utils/`` and ``lint/`` included) and the command line's modules.
+- Every ``ConsensusClustering(`` call in the port's tests and root
+  scripts passes ``plot_cdf``, since the default draws a figure (the
+  plotting tests are exempt).
 - The kernel modules import on the CPU, their wrappers take the plain
   versions there, and the build raises a clear error without ``nvcc``.
 """
@@ -70,12 +73,16 @@ def test_no_module_imports_jax_or_the_reference_package():
     scanned = {os.path.relpath(os.path.dirname(p), PKG)
                for p in _port_sources()}
     assert {"estimator", "append", "serve", "ops", "parallel", "obs",
-            "serve/sched", "serve/fleet", "autotune", "utils"} <= scanned
+            "serve/sched", "serve/fleet", "autotune", "utils",
+            "lint"} <= scanned
     files = {os.path.relpath(p, PKG) for p in _port_sources()}
     assert {"cli.py", "__main__.py", "serve/admin.py", "obs/query.py",
             "autotune/probes.py", "autotune/cli.py", "ops/probe.py",
-            "utils/platform.py", "parallel/mesh.py",
-            "parallel/distributed.py"} <= files
+            "utils/platform.py", "utils/plotting.py", "parallel/mesh.py",
+            "parallel/distributed.py", "lint/__init__.py",
+            "lint/__main__.py", "lint/contracts.py", "lint/findings.py",
+            "lint/packs.py", "lint/registry.py", "lint/reporters.py",
+            "lint/rules.py", "lint/runner.py"} <= files
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -89,6 +96,62 @@ def test_no_module_imports_jax_or_the_reference_package():
     assert not offenders, offenders
 
 
+def _calls_omitting_plot_cdf(source):
+    """Lines of ``ConsensusClustering(`` calls (under any name it is
+    imported as, or as an attribute) without a ``plot_cdf`` keyword, also
+    inside string literals that parse as Python (subprocess scripts)."""
+    tree = ast.parse(source)
+    names = {"ConsensusClustering"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname for a in node.names
+                      if a.name == "ConsensusClustering" and a.asname}
+    lines = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and "ConsensusClustering(" in node.value):
+            try:
+                inner = _calls_omitting_plot_cdf(node.value)
+            except SyntaxError:  # prose, not a script
+                inner = []
+            lines += [node.lineno + n - 1 for n in inner]
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if ((isinstance(f, ast.Name) and f.id in names)
+                or (isinstance(f, ast.Attribute)
+                    and f.attr == "ConsensusClustering")):
+            if not any(k.arg == "plot_cdf" for k in node.keywords):
+                lines.append(node.lineno)
+    return sorted(lines)
+
+
+def test_every_fit_outside_the_plotting_tests_names_plot_cdf():
+    """``plot_cdf`` defaults to True, as in the reference: a call that
+    omits it draws a figure at the end of ``fit`` (one per fit in every
+    test worker).  The tests and root scripts pass it, as the reference's
+    tests pass ``plot_cdf=False``; only the plotting tests draw."""
+    tests = os.path.join(REPO, "tests")
+    paths = [os.path.join(tests, f) for f in sorted(os.listdir(tests))
+             if f.startswith("test_torch_") and f.endswith(".py")
+             and f != "test_torch_plotting.py"]
+    paths += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "batch_invariance.py")]
+    missing = {}
+    for path in paths:
+        with open(path) as f:
+            lines = _calls_omitting_plot_cdf(f.read())
+        if lines:
+            missing[os.path.relpath(path, REPO)] = lines
+    assert not missing, missing
+    # The probe names the class through {cc} so that this file's own
+    # scan does not read it as a call.
+    probe = ("from m import {cc} as CC\nCC(K_range=(2, 3))\nm.{cc}()\n"
+             "S = '''\\n{cc}(plot_cdf=False)\\n{cc}()\\n'''\n")
+    assert _calls_omitting_plot_cdf(
+        probe.format(cc="ConsensusClustering")) == [2, 3, 6]
+
+
 _POISONED = """
 import sys
 sys.modules["jax"] = None
@@ -97,10 +160,10 @@ import numpy as np
 from consensus_clustering_tpu_torch import ConsensusClustering, make_blobs
 x, _ = make_blobs(n_samples=60, n_features=3, centers=2, random_state=0)
 cc = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
-                         device="cpu").fit(x)
+                         device="cpu", plot_cdf=False).fit(x)
 st = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
                          device="cpu", stream_h_block=3, accum_repr="packed",
-                         fuse_block="auto").fit(x)
+                         fuse_block="auto", plot_cdf=False).fit(x)
 assert st.metrics_["timing"] == {"packed_kernel": "plain",
                                  "fuse_block": "fused", "fused_kernel": "plain"}
 assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"], st.cdf_at_K_data[k]["mij"])
@@ -109,7 +172,7 @@ from consensus_clustering_tpu_torch.parallel import distributed, resample_mesh
 sharded = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
                               mesh=resample_mesh(["cpu"] * 8, row_shards=2,
                                                  k_shards=2),
-                              k_interleave=True).fit(x)
+                              k_interleave=True, plot_cdf=False).fit(x)
 assert all(np.array_equal(cc.cdf_at_K_data[k]["mij"],
                           sharded.cdf_at_K_data[k]["mij"]) for k in (2, 3))
 assert distributed.is_primary()
@@ -122,13 +185,14 @@ for clusterer in (GaussianMixture(), AgglomerativeClustering(),
                                 n_iterations=4, random_state=0, device="cpu",
                                 progress=False, k_batch_size=1,
                                 store_matrices=True,
-                                compute_consensus_labels=True)
+                                compute_consensus_labels=True,
+                                plot_cdf=False)
     assert len(other.fit_predict(x)) == 60
 import os, tempfile
 os.environ["CCTPU_MEMORY_BUDGET"] = "1000"
 est = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
                           device="cpu", mode="auto", stream_h_block=4,
-                          exact_best_k=True).fit(x)
+                          exact_best_k=True, plot_cdf=False).fit(x)
 assert est.metrics_["mode"] == "estimate" and "exact_best_k" in est.metrics_
 from consensus_clustering_tpu_torch.append import (
     PlaneStore, bootstrap_generation, run_append)
@@ -184,11 +248,31 @@ with tempfile.TemporaryDirectory() as tmp:
             main(["serve-admin", "--store-dir", tmp, "list"])
         except SystemExit as e:
             assert e.code == 0, e.code
+        try:
+            main(["lint", "--list-rules"])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        try:
+            main(["lint", "--pack", "all", "--json",
+                  "consensus_clustering_tpu_torch/utils/plotting.py"])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    assert json.loads(report.getvalue())["summary"]["files"] == 1
+    assert "JL019 " in out.getvalue()
     auto = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
                                device="cpu", autotune=True,
-                               calibration_dir=os.path.join(tmp, "cal")).fit(x)
+                               calibration_dir=os.path.join(tmp, "cal"),
+                               plot_cdf=False).fit(x)
     assert set(auto.metrics_["autotune"]) == {
         "cluster_batch", "split_init", "stream_h_block", "max_iter"}
+import matplotlib.pyplot as plt
+drawn = ConsensusClustering(K_range=(2, 3), n_iterations=8, random_state=0,
+                            device="cpu", plot_cdf=True).fit(x)
+(fig,) = [plt.figure(n) for n in plt.get_fignums()]
+assert [list(line.get_ydata()) for line in fig.axes[0].get_lines()] == [
+    [0.0] + list(drawn.cdf_at_K_data[k]["cdf"]) for k in (2, 3)]
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print(cc.best_k_, sorted(cc.cdf_at_K_data))
@@ -196,7 +280,7 @@ print(cc.best_k_, sorted(cc.cdf_at_K_data))
 
 
 def test_port_runs_with_jax_poisoned():
-    env = dict(os.environ)
+    env = dict(os.environ, MPLBACKEND="Agg")
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
         [sys.executable, "-c", _POISONED], capture_output=True, text=True,
@@ -215,18 +299,10 @@ def test_import_pins_full_f32_matmul():
 def test_fit_without_device_raises_without_cuda(monkeypatch):  # jaxlint: disable=JL018 -- raises before any sweep
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).normal(size=(20, 3))
-    cc = ConsensusClustering(K_range=(2, 3), n_iterations=4, random_state=0)
+    cc = ConsensusClustering(K_range=(2, 3), n_iterations=4, random_state=0,
+                             plot_cdf=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cc.fit(x)
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(plot_cdf=True)],
-)
-def test_unported_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConsensusClustering(K_range=(2, 3), random_state=0, **kwargs)
 
 
 def test_sklearn_clusterer_raises():  # jaxlint: disable=JL018 -- raises before any sweep
@@ -236,7 +312,7 @@ def test_sklearn_clusterer_raises():  # jaxlint: disable=JL018 -- raises before 
     from sklearn.cluster import DBSCAN
 
     cc = ConsensusClustering(clusterer=DBSCAN(), K_range=(2, 3),
-                             random_state=0, device="cpu")
+                             random_state=0, device="cpu", plot_cdf=False)
     with pytest.raises(AttributeError, match="n_clusters nor n_components"):
         cc.fit(np.random.default_rng(0).normal(size=(20, 3)))
 
@@ -245,11 +321,13 @@ def test_fit_rejects_bad_input():  # jaxlint: disable=JL018 -- raises before any
     x = np.ones((10, 2))
     x[3, 1] = np.nan
     with pytest.raises(ValueError, match="non-finite"):
-        ConsensusClustering(random_state=0, device="cpu").fit(x)
+        ConsensusClustering(random_state=0, device="cpu",
+                            plot_cdf=False).fit(x)
     with pytest.raises(ValueError, match="zero variance"):
-        ConsensusClustering(random_state=0, device="cpu").fit(np.ones((10, 2)))
+        ConsensusClustering(random_state=0, device="cpu",
+                            plot_cdf=False).fit(np.ones((10, 2)))
     with pytest.raises(ValueError, match="random_state"):
-        ConsensusClustering(device="cpu").fit(np.eye(10))
+        ConsensusClustering(device="cpu", plot_cdf=False).fit(np.eye(10))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -151,7 +151,7 @@ def test_mesh_shapes_and_refusals():  # jaxlint: disable=JL018 -- raises before 
     with pytest.raises(ValueError, match="must be >= 1"):
         resample_mesh(["cpu"], row_shards=0)
     with pytest.raises(TypeError, match="Mesh"):
-        ConsensusClustering(mesh=object())
+        ConsensusClustering(mesh=object(), plot_cdf=False)
     with pytest.raises(ValueError, match="primary device"):
         run_sweep(KMeans(), _config(), np.zeros((N, 3), np.float32), 0,
                   device="meta", mesh=mesh)
@@ -223,11 +223,11 @@ def test_estimator_is_mesh_invariant(data, one_device_estimates, shape,  # jaxli
 
 def test_api_fits_on_a_mesh_equal_one_device(data):  # jaxlint: disable=JL018 -- CPU port only, N=61, H=21
     kw = dict(K_range=KS, n_iterations=H, random_state=SEED, cluster_batch=4)
-    one = ConsensusClustering(device="cpu", **kw).fit(data)
+    one = ConsensusClustering(device="cpu", **kw, plot_cdf=False).fit(data)
     for extra in (dict(k_interleave=True, mesh=_mesh(2, 2, 2)),
                   dict(mesh=_mesh(1, 2, 2), stream_h_block=8,
                        accum_repr="packed")):
-        fit = ConsensusClustering(**kw, **extra).fit(data)
+        fit = ConsensusClustering(**kw, **extra, plot_cdf=False).fit(data)
         for k in KS:
             for name in ("pac_area", "hist", "mij", "iij"):
                 np.testing.assert_array_equal(fit.cdf_at_K_data[k][name],
@@ -332,11 +332,11 @@ def test_k_mesh_refused_by_the_estimator_and_auto_runs_exact(data,  # jaxlint: d
     with pytest.raises(ValueError, match="'h'/'n'"):
         ConsensusClustering(K_range=KS, n_iterations=H, random_state=SEED,
                             mesh=_mesh(2, 1, 1), mode="estimate",
-                            store_matrices=False).fit(data)
+                            store_matrices=False, plot_cdf=False).fit(data)
     monkeypatch.setenv("CCTPU_MEMORY_BUDGET", "1000")
     fit = ConsensusClustering(K_range=KS, n_iterations=H, random_state=SEED,
                               mesh=_mesh(2, 1, 1), mode="auto",
-                              store_matrices=False).fit(data)
+                              store_matrices=False, plot_cdf=False).fit(data)
     assert fit.metrics_.get("mode") != "estimate"
 
 
@@ -356,7 +356,7 @@ def test_cli_row_shards_equals_the_api_fit(tmp_path, capsys):  # jaxlint: disabl
     fit = ConsensusClustering(K_range=range(2, 5), n_iterations=10,
                               random_state=23, device="cpu",
                               clusterer_options={"n_init": 3},
-                              store_matrices=False).fit(x)
+                              store_matrices=False, plot_cdf=False).fit(x)
     assert result["pac_area"] == {str(k): fit.cdf_at_K_data[k]["pac_area"]
                                   for k in range(2, 5)}
     main(["run", "--dataset", "blobs", "--n-samples", "60", "--n-features",

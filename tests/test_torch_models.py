@@ -82,7 +82,7 @@ def _port_key(key):
 def corr_cij():
     """Cij at K=4 of a small corr.csv KMeans fit on the port (float32)."""
     cc = ConsensusClustering(K_range=(4,), n_iterations=20, random_state=3,
-                             store_matrices=True, device="cpu")
+                             store_matrices=True, device="cpu", plot_cdf=False)
     cc.fit(load_corr(transform=True))
     return cc.cdf_at_K_data[4]["cij"]
 
@@ -243,7 +243,7 @@ def test_gmm_pac_tracks_goldens_f64():  # jaxlint: disable=JL018 -- corr.csv, H=
     cc = ConsensusClustering(
         clusterer=GaussianMixture(), clusterer_options={"n_init": 2},
         K_range=range(5, 9), random_state=23, n_iterations=30,
-        compute_dtype="float64", device="cpu")
+        compute_dtype="float64", device="cpu", plot_cdf=False)
     cc.fit(load_corr(transform=True).astype(np.float64))
     ours = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in range(5, 9)])
     ref = np.array([goldens["gmm_pac"][str(k)] for k in range(5, 9)])

@@ -723,48 +723,51 @@ def _same_fit(a, b, ks):
 
 
 def test_api_per_k_resume(tmp_path):  # jaxlint: disable=JL018 -- CPU port only, N=110, H=40
-    fresh = ConsensusClustering(**_KW).fit(_X)
+    fresh = ConsensusClustering(**_KW, plot_cdf=False).fit(_X)
     seen = []
     first = ConsensusClustering(**{**_KW, "K_range": (2, 4)},
                                 checkpoint_dir=str(tmp_path),
                                 progress_callback=lambda k, p:
-                                seen.append((k, p))).fit(_X)
+                                seen.append((k, p)), plot_cdf=False).fit(_X)
     assert seen == [(k, first.cdf_at_K_data[k]["pac_area"]) for k in (2, 4)]
     assert sorted(os.listdir(tmp_path)) == ["k0002.npz", "k0004.npz",
                                             "sweep_meta.json"]
     seen.clear()
     partial = ConsensusClustering(**_KW, checkpoint_dir=str(tmp_path),
                                   progress_callback=lambda k, p:
-                                  seen.append((k, p))).fit(_X)
+                                  seen.append((k, p)), plot_cdf=False).fit(_X)
     assert partial.metrics_["resumed_ks"] == [2, 4]
     assert [k for k, _ in seen] == [3]
     _same_fit(partial, fresh, (2, 3, 4))
     assert partial.best_k_ == fresh.best_k_
-    full = ConsensusClustering(**_KW, checkpoint_dir=str(tmp_path)).fit(_X)
+    full = ConsensusClustering(**_KW, checkpoint_dir=str(tmp_path),
+                               plot_cdf=False).fit(_X)
     assert full.metrics_ == {"compile_seconds": 0.0, "run_seconds": 0.0,
                              "resamples_per_second": None,
                              "resumed_from_checkpoint": True}
     _same_fit(full, fresh, (2, 3, 4))
     with pytest.raises(ValueError, match="fingerprint mismatch"):
         ConsensusClustering(**{**_KW, "random_state": 4},
-                            checkpoint_dir=str(tmp_path)).fit(_X)
+                            checkpoint_dir=str(tmp_path),
+                            plot_cdf=False).fit(_X)
 
 
 def test_api_streamed_resume_and_progress(tmp_path):  # jaxlint: disable=JL018 -- CPU port only, N=110, H=40
     kw = dict(_KW, stream_h_block=16, accum_repr="packed",
               integrity_check_every=1)
-    fresh = ConsensusClustering(**kw).fit(_X)
+    fresh = ConsensusClustering(**kw, plot_cdf=False).fit(_X)
     assert fresh.metrics_["streaming"]["integrity_checks"] == 3
     faults.configure("block_start=2")
     with pytest.raises(InjectedFault):
-        ConsensusClustering(**kw, checkpoint_dir=str(tmp_path)).fit(_X)
+        ConsensusClustering(**kw, checkpoint_dir=str(tmp_path),
+                            plot_cdf=False).fit(_X)
     ring = tmp_path / "stream"
     assert sorted(os.listdir(ring)) == ["gen-00000000.ckpt",
                                         "gen-00000001.ckpt"]
     seen = []
     got = ConsensusClustering(**kw, checkpoint_dir=str(tmp_path),
                               progress_callback=lambda k, p:
-                              seen.append((k, p))).fit(_X)
+                              seen.append((k, p)), plot_cdf=False).fit(_X)
     s = got.metrics_["streaming"]
     assert s["resumed_from_block"] == 2 and s["integrity_checks"] == 1
     assert seen == [(k, got.cdf_at_K_data[k]["pac_area"]) for k in (2, 3, 4)]
@@ -783,16 +786,19 @@ def test_api_stale_ring_runs_everything(tmp_path):  # jaxlint: disable=JL018 -- 
     faults.configure("block_start=2")
     with pytest.raises(InjectedFault):
         ConsensusClustering(**{**kw, "n_iterations": 48},
-                            checkpoint_dir=str(tmp_path / "a")).fit(_X)
+                            checkpoint_dir=str(tmp_path / "a"),
+                            plot_cdf=False).fit(_X)
     os.rename(tmp_path / "a" / "stream", tmp_path / "stream")
-    got = ConsensusClustering(**kw, checkpoint_dir=str(tmp_path)).fit(_X)
+    got = ConsensusClustering(**kw, checkpoint_dir=str(tmp_path),
+                              plot_cdf=False).fit(_X)
     assert got.metrics_["streaming"]["resumed_from_block"] == 0
-    _same_fit(got, ConsensusClustering(**kw).fit(_X), (2, 3, 4))
+    _same_fit(got, ConsensusClustering(**kw,
+                                       plot_cdf=False).fit(_X), (2, 3, 4))
 
 
 def test_api_monolithic_progress_callback():  # jaxlint: disable=JL018 -- CPU port only, N=110, H=40
     seen = []
     cc = ConsensusClustering(**_KW, progress_callback=lambda k, p:
-                             seen.append((k, p))).fit(_X)
+                             seen.append((k, p)), plot_cdf=False).fit(_X)
     assert seen == [(k, cc.cdf_at_K_data[k]["pac_area"]) for k in (2, 3, 4)]
     assert all(type(k) is int and type(p) is float for k, p in seen)

@@ -229,7 +229,8 @@ def test_executor_equals_the_port_library_fit():  # jaxlint: disable=JL018 -- th
     cc = ConsensusClustering(K_range=(2, 3), n_iterations=10,
                              random_state=23, device="cpu",
                              stream_h_block=h_block, store_matrices=False,
-                             clusterer_options={"n_init": 3}).fit(x)
+                             clusterer_options={"n_init": 3},
+                             plot_cdf=False).fit(x)
     assert result["pac_area"] == {
         str(k): float(cc.cdf_at_K_data[k]["pac_area"]) for k in (2, 3)}
     assert result["best_k"] == cc.best_k_

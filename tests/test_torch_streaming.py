@@ -258,7 +258,7 @@ def test_adaptive_fit_gives_reference_h_effective():  # jaxlint: disable=JL018 -
         K_range=(2, 3), n_iterations=60, random_state=11, device="cpu",
         stream_h_block=5, accum_repr="packed", adaptive_tol=0.02,
         adaptive_patience=2, adaptive_min_h=10, clusterer_options={
-            "n_init": 2},
+            "n_init": 2}, plot_cdf=False,
     ).fit(x)
     s = cc.metrics_["streaming"]
     assert s["stopped_early"] and ref["streaming"]["stopped_early"]
@@ -270,9 +270,9 @@ def test_adaptive_fit_gives_reference_h_effective():  # jaxlint: disable=JL018 -
 def test_api_stream_fit_matches_monolithic_fit(data):  # jaxlint: disable=JL018 -- CPU port only, N=110
     kwargs = dict(K_range=range(2, 5), n_iterations=20, random_state=0,
                   device="cpu")
-    mono = ConsensusClustering(**kwargs).fit(data)
+    mono = ConsensusClustering(**kwargs, plot_cdf=False).fit(data)
     stream = ConsensusClustering(**kwargs, stream_h_block=6,
-                                 accum_repr="packed").fit(data)
+                                 accum_repr="packed", plot_cdf=False).fit(data)
     for k in range(2, 5):
         for name in ("mij", "iij", "cij", "hist", "cdf"):
             np.testing.assert_array_equal(stream.cdf_at_K_data[k][name],
@@ -329,9 +329,10 @@ def test_config_and_engine_validation():  # jaxlint: disable=JL018 -- every fit 
         StreamingSweep(KMeans(), SweepConfig(**base), device="cpu")
     with pytest.raises(ValueError, match="use_packed_kernel"):
         ConsensusClustering(K_range=(2, 3), random_state=0, device="cpu",
-                            use_packed_kernel=False).fit(np.eye(6))
+                            use_packed_kernel=False,
+                            plot_cdf=False).fit(np.eye(6))
     with pytest.raises(ValueError, match="fuse_block"):
-        ConsensusClustering(fuse_block="maybe")
+        ConsensusClustering(fuse_block="maybe", plot_cdf=False)
 
 
 def _two_process_mesh():

@@ -99,6 +99,7 @@ def test_api_result_schema(blobs):  # jaxlint: disable=JL018 -- CPU port only, N
     x, _ = blobs
     cc = ConsensusClustering(
         K_range=range(2, 6), n_iterations=20, random_state=0, device="cpu",
+        plot_cdf=False,
     ).fit(x)
     assert sorted(cc.cdf_at_K_data) == [2, 3, 4, 5]
     entry = cc.cdf_at_K_data[3]
@@ -122,6 +123,7 @@ def test_api_delta_k_mode(blobs):  # jaxlint: disable=JL018 -- CPU port only, N=
     cc = ConsensusClustering(
         K_range=range(2, 5), n_iterations=12, random_state=1, device="cpu",
         consensus_matrix_analysis="delta_k", store_matrices=False,
+        plot_cdf=False,
     ).fit(x)
     assert cc.cdf_at_K_data[2]["mij"] is None
     assert cc.best_k_ in (2, 3, 4)
@@ -131,7 +133,7 @@ def test_api_delta_k_mode(blobs):  # jaxlint: disable=JL018 -- CPU port only, N=
 def corr_fit():
     cc = ConsensusClustering(
         K_range=range(2, 15), random_state=23, n_iterations=30,
-        store_matrices=True, device="cpu",
+        store_matrices=True, device="cpu", plot_cdf=False,
     )
     return cc.fit(load_corr(transform=True))
 
