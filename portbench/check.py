@@ -1,0 +1,146 @@
+"""Whether the answers a run's window produced are correct: one sweep of
+the window, drawn from the run's seed, worked out again by the plain
+reference (:mod:`portbench.reference`) from the same data and
+``random_state`` once the window has closed.
+
+The numbers compared, each against its limit in ``workloads/<cell>.json``,
+are taken at the Ks up to the data's cluster count, where a correct
+float32 sweep in any order of summation gives the same partitions:
+
+- ``centroid_gap``: the median lane's relative gap, over every lane of
+  those Ks, between the centres the program's ``KMeans.fit`` returned in
+  the window (captured by :class:`Capture`) and the reference's, each
+  lane's |program - reference| / |reference| over its k x d values.  The
+  median, not the largest: in a few lanes of ten thousand two float32
+  sweeps in different orders part ways (a Lloyd step more or less where
+  the shift meets the tolerance, a cluster cut at another place), which
+  no precision bounds;
+- ``cdf_gap``: the largest gap between the program's and the reference's
+  exact consensus CDF (every such K of an exact sweep; the refined K of an
+  estimated one, if it is such a K); a lane that parted ways may move a
+  few pairs across a bin edge, so the limit leaves room for a few;
+- ``est_cdf_gap``: estimated sweeps only, the largest gap between the
+  sampled-pair CDF estimates (or the refined K's estimated PAC);
+- ``best_k_gap``: how far the chosen K lies from the choice the rule makes
+  from the reference's PACs at those Ks and the program's at the others.
+
+Past the cluster count Lloyd splits a cluster along a path that any change
+of rounding moves in many lanes, so those Ks' curves are judged only
+through the choice of K.  The sweep the check takes is drawn from the seed among the first
+``check.within`` sweeps of the window (the last one where fewer ran).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from portbench.reference import consensus as ref
+from portbench.reference.sweep import reference_sweep, sweep_params
+
+#: Where the program's clusterer hands back its centres.
+CLUSTERER = ("consensus_clustering_tpu_torch.models.kmeans", "KMeans", "fit")
+
+
+def checked_index(seed: int, within: int) -> int:
+    """The window's sweep the check takes, drawn from the seed."""
+    rng = np.random.default_rng([seed & ((1 << 64) - 1), 0xC4EC])
+    return int(rng.integers(0, max(1, within)))
+
+
+class Capture:
+    """Holds the centres each ``KMeans.fit`` call returns while ``on``, by
+    K in call order; the program's tensors are kept, never copied or read
+    in the window."""
+
+    def __init__(self):
+        self.on = False
+        self.by_k: Dict[int, List[torch.Tensor]] = {}
+
+    def wrap(self, fn):
+        capture = self
+
+        def fit(self, keys, x, k, k_max=None, init_centroids=None):
+            out = fn(self, keys, x, k, k_max, init_centroids=init_centroids)
+            if capture.on:
+                capture.by_k.setdefault(int(k), []).append(out[1])
+            return out
+
+        fit.__wrapped__ = fn
+        return fit
+
+
+def check_sweep(cell: Dict[str, Any], x: np.ndarray, sweep: Dict[str, Any],
+                centroids: Dict[int, List[torch.Tensor]],
+                device: str) -> Dict[str, Any]:
+    """``{"correct": bool, "numbers": {name: {"value", "limit"}}}`` of one
+    sweep and the centres captured in it; the numbers are also printed, as
+    the last lines of standard error."""
+    config, work = cell["config"], cell["workload"]
+    limits, mode = work["limits"], work["check"]["mode"]
+    found = {name: 0.0 for name in limits}
+    notes = []
+    if sweep["mode"] != mode:
+        notes.append(f"the sweep ran mode {sweep['mode']!r}, the cell "
+                     f"states {mode!r}")
+    params = sweep_params(config, mode)
+    h = params["h"] = int(sweep["h_effective"])
+    estimated = mode == "estimate"
+    ks = sweep["ks"]
+    checked = [k for k in ks if k <= int(config["data"]["centers"])]
+    refined = sweep.get("refined_k")
+    exact_ks = [refined] if estimated and refined in checked else []
+    r = reference_sweep(params, x, sweep["random_state"], checked, device,
+                        exact_ks=exact_ks)
+    gaps, by_k = [], {}
+    for k in checked:
+        parts = centroids.get(k, [])
+        rows = sum(int(p.shape[0]) for p in parts)
+        if not rows or rows % h:
+            notes.append(f"K={k}: {rows} captured lanes, not whole sweeps "
+                         f"of {h}")
+            gaps.append(torch.tensor([float("inf")]))
+        else:
+            got = torch.cat([p.to(device) for p in parts])
+            at_k = torch.cat([ref.centroid_gaps(got[p0:p0 + h],
+                                                r["centroids"][k], k).cpu()
+                              for p0 in range(0, rows, h)])
+            gaps.append(at_k)
+            by_k[k] = float(at_k.max())
+        if estimated:
+            if k == refined:
+                est = abs(sweep["pac_estimate_at_refined_k"] - r["pac"][k])
+                found["cdf_gap"] = max(found["cdf_gap"], float(np.abs(
+                    sweep["cdf"][k] - r["exact_cdf"][k]).max()))
+            else:
+                est = float(np.abs(sweep["cdf"][k] - r["cdf"][k]).max())
+            found["est_cdf_gap"] = max(found["est_cdf_gap"], est)
+        else:
+            found["cdf_gap"] = max(found["cdf_gap"], float(np.abs(
+                sweep["cdf"][k] - r["cdf"][k]).max()))
+    lanes = torch.cat(gaps) if gaps else torch.zeros(1)
+    found["centroid_gap"] = float(lanes.double().median())
+    judged = dict(sweep["pac"])
+    if estimated:
+        judged[refined] = sweep["pac_estimate_at_refined_k"]
+    judged.update(r["pac"])
+    choice = ref.best_k(ks, [judged[k] for k in ks])
+    found["best_k_gap"] = float(abs(sweep["best_k"] - choice))
+    numbers = {name: {"value": found[name], "limit": limits[name]}
+               for name in limits}
+    correct = not notes and all(v["value"] <= v["limit"]
+                                for v in numbers.values())
+    for note in notes:
+        print(f"check: {note}", file=sys.stderr)
+    print(f"check: sweep {sweep['random_state']} at K {checked}; lane "
+          f"centroid gaps: largest by K {by_k}, of {lanes.numel()} lanes",
+          file=sys.stderr)
+    for name, v in numbers.items():
+        ok = "ok" if v["value"] <= v["limit"] else "FAIL"
+        print(f"check {name} {v['value']!r} limit {v['limit']!r} {ok}",
+              file=sys.stderr)
+    return {"correct": correct, "numbers": numbers,
+            "centroid_gap_by_k": by_k}

@@ -1,0 +1,14 @@
+"""clusterer seeding: host time inside k-means++
+(``models/kmeans._kmeanspp_init``) as a share of the traced window.
+
+The window is the profiled sweep's, which the light profile
+(:func:`portbench.trace.profiling`: ranges, launches and device operations,
+no PyTorch operators) slows by the factor the result gives as
+``seconds.trace_inflation`` (that sweep's wall over the untraced ones').
+"""
+
+from portbench.metrics._share import host_share
+
+
+def read(record):
+    return host_share(record, "kmeanspp")

@@ -1,0 +1,71 @@
+"""The benchmark's command: one run of one cell, one process.
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+        --trace <0|1>
+
+Prints the run's result as the last line of standard output: one JSON
+object with ``correct``, ``attempted``, ``failed``, ``metrics`` (the
+cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
+``device`` and, traced, ``breakdown``; ``check`` last, each compared
+number beside its limit (also the last lines of standard error).  Exits
+non-zero, printing no result, without as many CUDA devices as the cell
+asks for, without the program beside this directory, or when a module of
+JAX or of the JAX package is loaded once the window has closed.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+T_START = time.perf_counter()
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from portbench import harness  # noqa: E402
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--workload", required=True)
+    parser.add_argument("--seed", type=int, required=True)
+    parser.add_argument("--seconds", type=float, required=True)
+    parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    parser.add_argument("--precision", choices=("float32", "tf32"),
+                        default="float32",
+                        help="tf32: the lower-precision control, which the "
+                             "check must refuse")
+    args = parser.parse_args(argv)
+    harness.set_environment()
+    try:
+        cell = harness.load_cell(args.workload)
+    except harness.CellError as e:
+        print(f"portbench: {e}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available() or (
+            torch.cuda.device_count() < int(cell["chips"])):
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"portbench: {args.workload} needs {cell['chips']} CUDA "
+              f"device(s); this machine has {have}", file=sys.stderr)
+        return 2
+    try:
+        import consensus_clustering_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"portbench: the program is not beside the benchmark: {e}",
+              file=sys.stderr)
+        return 2
+    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                              t_start=T_START, precision=args.precision)
+    loaded = harness.forbidden_modules()
+    if loaded:
+        print(f"portbench: modules of JAX or of the JAX package are loaded: "
+              f"{loaded}", file=sys.stderr)
+        return 3
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
