@@ -90,6 +90,10 @@ from consensus_clustering_tpu_torch.models.protocol import (
 from consensus_clustering_tpu_torch.models.sklearn_adapter import (
     SklearnClusterer,
 )
+from consensus_clustering_tpu_torch.obs.tracing import (
+    recording_ranges,
+    region,
+)
 from consensus_clustering_tpu_torch.ops.analysis import (
     area_under_cdf,
     bin_edges,
@@ -466,64 +470,42 @@ class ConsensusClustering:
             return approx_bytes < 2 * 2**30
         return bool(self.store_matrices)
 
+    @region("fit")
     def fit(self, X):
         """Run the consensus sweep; fills ``cdf_at_K_data`` and returns
         self."""
-        if self.random_state is None:
-            raise ValueError(
-                "random_state must be an integer seed: the resample plan is "
-                "a pure function of it"
+        with region("fit.resolve"):
+            if self.random_state is None:
+                raise ValueError(
+                    "random_state must be an integer seed: the resample "
+                    "plan is a pure function of it"
+                )
+            X = np.asarray(X)
+            if X.ndim != 2:
+                raise ValueError(f"X must be 2-D, got shape {X.shape}")
+            from consensus_clustering_tpu_torch.resilience.integrity import (
+                check_input_matrix,
             )
-        X = np.asarray(X)
-        if X.ndim != 2:
-            raise ValueError(f"X must be 2-D, got shape {X.shape}")
-        from consensus_clustering_tpu_torch.resilience.integrity import (
-            check_input_matrix,
-        )
 
-        problem = check_input_matrix(X)
-        if problem is not None:
-            raise ValueError(f"{problem['error']} — {problem['hint']}")
-        n, d = X.shape
-        if self.compute_consensus_labels and not self._resolve_store_matrices(n):
-            raise ValueError(
-                "compute_consensus_labels=True needs the consensus matrices "
-                "(store_matrices is False, or 'auto' disabled them for this "
-                "N); pass store_matrices=True explicitly"
-            )
-        device = self._device()
-        mode, sizing = self._resolve_mode(n, d, device)
-        self._autotune_options = {}
-        self.autotune_ = None
+            problem = check_input_matrix(X)
+            if problem is not None:
+                raise ValueError(f"{problem['error']} — {problem['hint']}")
+            n, d = X.shape
+            if (self.compute_consensus_labels
+                    and not self._resolve_store_matrices(n)):
+                raise ValueError(
+                    "compute_consensus_labels=True needs the consensus "
+                    "matrices (store_matrices is False, or 'auto' disabled "
+                    "them for this N); pass store_matrices=True explicitly"
+                )
+            device = self._device()
+            mode, sizing = self._resolve_mode(n, d, device)
+            self._autotune_options = {}
+            self.autotune_ = None
+            if mode != "estimate":
+                config = self._exact_config(n, d, device)
         if mode == "estimate":
             return self._fit_estimate(X, n, d, device, sizing)
-        cluster_batch, split_init, stream_h_block = self._resolve_autotune(
-            n, d, device)
-        config = SweepConfig(
-            n_samples=n,
-            n_features=d,
-            k_values=tuple(self.K_range),
-            n_iterations=self.n_iterations,
-            subsampling=self.subsampling,
-            bins=self.bins,
-            pac_interval=self.PAC_interval,
-            parity_zeros=self.parity_zeros,
-            store_matrices=self._resolve_store_matrices(n),
-            chunk_size=self.chunk_size,
-            cluster_batch=cluster_batch,
-            split_init=bool(split_init),
-            k_interleave=self.k_interleave,
-            reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
-            stream_h_block=stream_h_block,
-            adaptive_tol=self.adaptive_tol,
-            adaptive_patience=self.adaptive_patience,
-            adaptive_min_h=self.adaptive_min_h,
-            accum_repr=self.accum_repr,
-            use_packed_kernel=self.use_packed_kernel,
-            fuse_block=self.fuse_block,
-            integrity_check_every=self.integrity_check_every,
-            dtype=self.compute_dtype,
-        )
         ckpt = None
         loaded: Dict[int, Dict[str, np.ndarray]] = {}
         if self.checkpoint_dir is not None and self._writes_checkpoints():
@@ -578,25 +560,57 @@ class ConsensusClustering:
                         resamples_per_second=float(
                             out["timing"]["resamples_per_second"]),
                     )
-        self._build_results(entries, config, loaded, timings)
-        if streaming_infos:
-            self.metrics_["streaming"] = streaming_infos[-1]
-            if len(streaming_infos) > 1:
-                self.metrics_["streaming_batches"] = streaming_infos
-        if self.autotune_ is not None:
-            self.metrics_["autotune"] = self.autotune_
-        metrics_logger.emit("sweep_complete", **{
-            **self.metrics_,
-            "n_samples": n,
-            "k_values": [int(k) for k in config.k_values],
-            "n_iterations": config.n_iterations,
-            "resumed_ks": sorted(int(k) for k in loaded),
-            "pac_area": {int(k): float(v["pac_area"])
-                         for k, v in self.cdf_at_K_data.items()},
-            "best_k": self.best_k_,
-        })
+        with region("fit.assemble"):
+            self._build_results(entries, config, loaded, timings)
+            if streaming_infos:
+                self.metrics_["streaming"] = streaming_infos[-1]
+                if len(streaming_infos) > 1:
+                    self.metrics_["streaming_batches"] = streaming_infos
+            if self.autotune_ is not None:
+                self.metrics_["autotune"] = self.autotune_
+            metrics_logger.emit("sweep_complete", **{
+                **self.metrics_,
+                "n_samples": n,
+                "k_values": [int(k) for k in config.k_values],
+                "n_iterations": config.n_iterations,
+                "resumed_ks": sorted(int(k) for k in loaded),
+                "pac_area": {int(k): float(v["pac_area"])
+                             for k, v in self.cdf_at_K_data.items()},
+                "best_k": self.best_k_,
+            })
         self._draw_cdf()
         return self
+
+    def _exact_config(self, n: int, d: int, device) -> SweepConfig:
+        """The exact engines' configuration of this fit, with the knobs
+        ``autotune`` fills (:meth:`_resolve_autotune`)."""
+        cluster_batch, split_init, stream_h_block = self._resolve_autotune(
+            n, d, device)
+        return SweepConfig(
+            n_samples=n,
+            n_features=d,
+            k_values=tuple(self.K_range),
+            n_iterations=self.n_iterations,
+            subsampling=self.subsampling,
+            bins=self.bins,
+            pac_interval=self.PAC_interval,
+            parity_zeros=self.parity_zeros,
+            store_matrices=self._resolve_store_matrices(n),
+            chunk_size=self.chunk_size,
+            cluster_batch=cluster_batch,
+            split_init=bool(split_init),
+            k_interleave=self.k_interleave,
+            reseed_clusterer_per_resample=self.reseed_clusterer_per_resample,
+            stream_h_block=stream_h_block,
+            adaptive_tol=self.adaptive_tol,
+            adaptive_patience=self.adaptive_patience,
+            adaptive_min_h=self.adaptive_min_h,
+            accum_repr=self.accum_repr,
+            use_packed_kernel=self.use_packed_kernel,
+            fuse_block=self.fuse_block,
+            integrity_check_every=self.integrity_check_every,
+            dtype=self.compute_dtype,
+        )
 
     # -- autotune --------------------------------------------------------
 
@@ -862,13 +876,14 @@ class ConsensusClustering:
         if self.progress_callback is not None:
             for i, k in enumerate(ks):
                 self.progress_callback(int(k), float(out["pac_area"][i]))
-        self._build_results(self._entries(out, config), config, {},
-                            [out["timing"]])
-        self.metrics_["mode"] = "estimate"
-        self.metrics_["streaming"] = out["streaming"]
-        self.metrics_["estimator"] = out["estimator"]
-        if sizing is not None:
-            self.metrics_["auto"] = sizing
+        with region("fit.assemble"):
+            self._build_results(self._entries(out, config), config, {},
+                                [out["timing"]])
+            self.metrics_["mode"] = "estimate"
+            self.metrics_["streaming"] = out["streaming"]
+            self.metrics_["estimator"] = out["estimator"]
+            if sizing is not None:
+                self.metrics_["auto"] = sizing
         if self.exact_best_k:
             from consensus_clustering_tpu_torch.estimator.tiled import (
                 exact_curves_for_k,
@@ -879,9 +894,10 @@ class ConsensusClustering:
             # distance from the estimate the disclosed band does not cover.
             refine_config = dataclasses.replace(
                 config, n_iterations=int(out["streaming"]["h_effective"]))
-            exact = exact_curves_for_k(clusterer, refine_config, X,
-                                       self.random_state, self.best_k_,
-                                       device=device)
+            with region("fit.refine"):
+                exact = exact_curves_for_k(clusterer, refine_config, X,
+                                           self.random_state, self.best_k_,
+                                           device=device)
             entry = self.cdf_at_K_data[self.best_k_]
             pac_estimate = entry["pac_area"]
             entry["hist"] = np.asarray(exact["hist"], np.float64)
@@ -893,16 +909,17 @@ class ConsensusClustering:
                 "pac_area_estimate": float(pac_estimate),
                 "timing": exact["timing"],
             }
-        metrics_logger.emit("sweep_complete", **{
-            **self.metrics_,
-            "n_samples": n,
-            "k_values": [int(k) for k in ks],
-            "n_iterations": config.n_iterations,
-            "resumed_ks": [],
-            "pac_area": {int(k): float(v["pac_area"])
-                         for k, v in self.cdf_at_K_data.items()},
-            "best_k": self.best_k_,
-        })
+        with region("fit.assemble"):
+            metrics_logger.emit("sweep_complete", **{
+                **self.metrics_,
+                "n_samples": n,
+                "k_values": [int(k) for k in ks],
+                "n_iterations": config.n_iterations,
+                "resumed_ks": [],
+                "pac_area": {int(k): float(v["pac_area"])
+                             for k, v in self.cdf_at_K_data.items()},
+                "best_k": self.best_k_,
+            })
         self._draw_cdf()
         return self
 
@@ -959,9 +976,9 @@ class ConsensusClustering:
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(self.profile_dir, exist_ok=True)
-        with profile(activities=activities,
-                     on_trace_ready=tensorboard_trace_handler(
-                         self.profile_dir)):
+        with recording_ranges(), profile(
+                activities=activities,
+                on_trace_ready=tensorboard_trace_handler(self.profile_dir)):
             yield
 
     def _run(self, X, config: SweepConfig, clusterer, is_host: bool, ckpt,
@@ -1011,7 +1028,8 @@ class ConsensusClustering:
             if self.progress_callback is not None:
                 for i, k in enumerate(config.k_values):
                     self.progress_callback(int(k), float(out["pac_area"][i]))
-        entries = self._entries(out, config, shared_iij)
+        with region("fit.assemble"):
+            entries = self._entries(out, config, shared_iij)
         if ckpt is not None:
             for k in config.k_values:
                 ckpt.save_k(k, entries[k])
@@ -1116,10 +1134,12 @@ class ConsensusClustering:
             return
         run_seconds = sum(t["run_seconds"] for t in timings)
         n_fresh = sum(1 for k in ks if k not in loaded)
-        launches = {}
+        launches, lloyd = {}, {}
         for t in timings:
             for name, count in t["kernel_launches"].items():
                 launches[name] = launches.get(name, 0) + count
+            for name, count in t["lloyd"].items():
+                lloyd[name] = lloyd.get(name, 0) + count
         self.metrics_ = {
             "compile_seconds": sum(t["compile_seconds"] for t in timings),
             "run_seconds": run_seconds,
@@ -1128,6 +1148,7 @@ class ConsensusClustering:
             "n_batches": len(timings),
             "device": timings[-1]["device"],
             "kernel_launches": launches,
+            "lloyd": lloyd,
         }
         if "processes" in timings[-1]:
             # A mesh's processes; ``device_memory`` is this process's.

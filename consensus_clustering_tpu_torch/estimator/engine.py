@@ -66,7 +66,12 @@ from consensus_clustering_tpu_torch.estimator.sampler import (
     pair_key,
     sample_pairs,
 )
+from consensus_clustering_tpu_torch.models.kmeans import (
+    lloyd_counts,
+    lloyd_since,
+)
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import (
     device_scalar,
@@ -366,41 +371,49 @@ class PairConsensusEngine:
 
         cons_div = {}
         held = mesh.held_rows(0)
-        for r in held:
-            parts = {c: self._iij_increment(rows(c), *pairs[c][:2])
-                     for c in local_column(mesh, 0, r)}
-            state["iij"][r] += mesh.psum(
-                parts, mesh.axis((0, 0, r), RESAMPLE_AXIS))
-            cons_div[r] = state["iij"][r].to(torch.float32) + device_scalar(
-                1e-6, state["iij"][r].device)
+        with region("engine.accumulate"):
+            for r in held:
+                parts = {c: self._iij_increment(rows(c), *pairs[c][:2])
+                         for c in local_column(mesh, 0, r)}
+                state["iij"][r] += mesh.psum(
+                    parts, mesh.axis((0, 0, r), RESAMPLE_AXIS))
+                cons_div[r] = state["iij"][r].to(torch.float32) + (
+                    device_scalar(1e-6, state["iij"][r].device))
         x_sub = {c: on(x, c)[on(indices, c)[shard_lanes(geo, c)]
                              [:valid_lanes(geo, c, h_total, h_start)]]
                  for c in mesh.coords() if mesh.is_local(c)}
         counts = []
         for i, k in enumerate(config.k_values):
-            labels = {c: _shard_labels(self.clusterer, config, geo, c,
-                                       on(key_cluster, c), k, xs, h_total,
-                                       h_start)
-                      for c, xs in x_sub.items()}
+            with region("engine.cluster"):
+                labels = {c: _shard_labels(self.clusterer, config, geo, c,
+                                           on(key_cluster, c), k, xs,
+                                           h_total, h_start)
+                          for c, xs in x_sub.items()}
             lines = gather_lines(mesh, labels, 0)
             hist = {}
             for r in held:
-                parts = {}
-                for c in local_column(mesh, 0, r):
-                    group = lines[c[1]].to(mesh.device(c), non_blocking=True)
-                    parts[c] = self._mij_increment(group, rows(c),
-                                                   *pairs[c][:2])
-                mij = state["mij"][r][i]
-                mij += mesh.psum(parts, mesh.axis((0, 0, r), RESAMPLE_AXIS))
+                with region("engine.accumulate"):
+                    parts = {}
+                    for c in local_column(mesh, 0, r):
+                        group = lines[c[1]].to(mesh.device(c),
+                                               non_blocking=True)
+                        parts[c] = self._mij_increment(group, rows(c),
+                                                       *pairs[c][:2])
+                    mij = state["mij"][r][i]
+                    mij += mesh.psum(parts,
+                                     mesh.axis((0, 0, r), RESAMPLE_AXIS))
                 # The dense consensus arithmetic at the sampled pairs: an
                 # f32 divide with the 1e-6 regulariser (pairs are i < j: no
                 # diagonal); padding slots are masked out.
-                o = mesh.row_owner(0, r)
-                cons = mij.to(torch.float32) / cons_div[r]
-                hist[r] = masked_histogram_counts(
-                    cons[None, :], pairs[o][2][None, :], config.bins)
-            counts.append(mesh.merge_rows(0, hist, dest=self.device))
-        return torch.stack(counts)
+                with region("engine.evaluate"):
+                    o = mesh.row_owner(0, r)
+                    cons = mij.to(torch.float32) / cons_div[r]
+                    hist[r] = masked_histogram_counts(
+                        cons[None, :], pairs[o][2][None, :], config.bins)
+            with region("engine.evaluate"):
+                counts.append(mesh.merge_rows(0, hist, dest=self.device))
+        with region("engine.evaluate"):
+            return torch.stack(counts)
 
     # -- resilience ------------------------------------------------------
 
@@ -440,6 +453,7 @@ class PairConsensusEngine:
     # -- the driver ------------------------------------------------------
 
     @in_peak_memory_window
+    @region("engine")
     def run(
         self,
         x: np.ndarray,
@@ -451,6 +465,7 @@ class PairConsensusEngine:
         adaptive_min_h: Optional[int] = None,
         checkpointer: Optional[StreamCheckpointer] = None,
         integrity_check_every: Optional[int] = None,
+        tracer=None,
         return_state: bool = False,
     ) -> Dict[str, Any]:
         """Stream the estimator; returns the streaming engine's result
@@ -458,9 +473,11 @@ class PairConsensusEngine:
         plus ``estimator``, the disclosed bound
         (:func:`.bounds.bound_disclosure`).
 
-        The knobs are :meth:`..parallel.streaming.StreamingSweep.run`'s.
-        ``checkpointer`` resumes a run of the same (config, seed, data,
-        backend, H, knobs, n_pairs) bit for bit; frames hold the (nK, M)
+        The knobs, and ``tracer``'s spans (``host_evaluate`` is the pair
+        counts' copy to the host and the curves from them), are
+        :meth:`..parallel.streaming.StreamingSweep.run`'s, and so is
+        ``timing``.  ``checkpointer`` resumes a run of the same (config,
+        seed, data, backend, H, knobs, n_pairs) bit for bit; frames hold the (nK, M)
         counts and curves.  ``return_state`` adds ``pair_state``: the
         pairs and their final counts, host int arrays.
         """
@@ -486,7 +503,7 @@ class PairConsensusEngine:
         n, m, hb = config.n_samples, self.n_pairs, self._hb
         device = self.device
         on_cuda = device.type == "cuda"
-        launches0 = launch_counts()
+        launches0, lloyd0 = launch_counts(), lloyd_counts()
         t0 = time.perf_counter()
         xd = torch.as_tensor(np.asarray(x)).to(device=device,
                                                dtype=config.torch_dtype)
@@ -512,6 +529,7 @@ class PairConsensusEngine:
                 adaptive_patience=adaptive_patience,
                 adaptive_min_h=adaptive_min_h,
             )
+            t_restore = time.perf_counter()
             resume = ring.latest(ckpt_fp, self._verify_frame)
             if resume is not None:
                 header, arrays = resume
@@ -541,6 +559,12 @@ class PairConsensusEngine:
                         "resume with the same stream_h_block, or point the "
                         "run at a fresh checkpoint ring"
                     )
+                if tracer is not None:
+                    tracer.record("resume_restore",
+                                  time.perf_counter() - t_restore,
+                                  resumed_from_block=start_block,
+                                  h_done=h_effective,
+                                  terminal=resume_terminal)
         if state is None:
             state = self.init_state()
         integrity_checks = 0
@@ -556,67 +580,81 @@ class PairConsensusEngine:
         try:
             for b in range(start_block, start_block if resume_terminal
                            else n_blocks):
-                faults.fire("block_start", index=b)
-                counts = self.step(state, xd, pairs, key, b * hb,
-                                   n_iterations)
-                h_done = min((b + 1) * hb, n_iterations)
-                nbits = faults.corrupt("accumulator", index=b)
-                if nbits:
-                    self._flip_state_bits(state, nbits, b)
-                if check_due(b):
-                    integrity_checks += 1
-                    found = agree_counts(self.mesh, self._integrity_stats(
-                        self.gather_state(state), h_done))
-                    bad = {name: v for name, v in found.items() if v}
-                    if bad:
-                        raise IntegrityError(
-                            "accumulator",
-                            f"pair-count sentinel: block {b} state violates "
-                            f"the count invariants ({bad}): corrupt "
-                            "accumulator; retry from the last verified "
-                            "checkpoint",
-                            block=b, details=bad,
-                            checks_run=integrity_checks,
+                with region("engine.block", "h_block", tracer,
+                            block=b) as block:
+                    faults.fire("block_start", index=b)
+                    counts = self.step(state, xd, pairs, key, b * hb,
+                                       n_iterations)
+                    h_done = min((b + 1) * hb, n_iterations)
+                    nbits = faults.corrupt("accumulator", index=b)
+                    if nbits:
+                        self._flip_state_bits(state, nbits, b)
+                    if check_due(b):
+                        with region("engine.integrity", "integrity_check",
+                                    tracer, block=b) as check:
+                            integrity_checks += 1
+                            found = agree_counts(
+                                self.mesh, self._integrity_stats(
+                                    self.gather_state(state), h_done))
+                            bad = {name: v for name, v in found.items()
+                                   if v}
+                            check.add(violations=len(bad))
+                        if bad:
+                            raise IntegrityError(
+                                "accumulator",
+                                f"pair-count sentinel: block {b} state "
+                                f"violates the count invariants ({bad}): "
+                                "corrupt accumulator; retry from the last "
+                                "verified checkpoint",
+                                block=b, details=bad,
+                                checks_run=integrity_checks,
+                            )
+                    with region("engine.evaluate", "host_evaluate", tracer,
+                                block=b):
+                        hist, cdf, pac = estimate_curves_from_pair_counts(
+                            counts.cpu().numpy(), m, n, lo, hi,
+                            parity_zeros=config.parity_zeros,
                         )
-                hist, cdf, pac = estimate_curves_from_pair_counts(
-                    counts.cpu().numpy(), m, n, lo, hi,
-                    parity_zeros=config.parity_zeros,
-                )
-                curves = {"hist": hist, "cdf": cdf, "pac_area": pac}
-                h_effective = h_done
-                trajectory.append([float(v) for v in pac])
-                if block_callback is not None:
-                    block_callback(b, h_effective, trajectory[-1])
-                stop = False
-                if adaptive:
-                    quiet, stop = adaptive_decision(
-                        prev_pac, pac, quiet, adaptive_tol,
-                        adaptive_patience, adaptive_min_h, h_effective,
-                        n_iterations,
-                    )
-                prev_pac = pac
-                flat = self.gather_state(state) if ring.on else None
-                if ring.writer:
-                    # Copies: the next block updates the state in place.
-                    arrays = {f"state_{name}":
-                              value.to("cpu", copy=True).numpy()
-                              for name, value in flat.items()}
-                    arrays.update({f"curve_{name}": v
-                                   for name, v in curves.items()})
-                    checkpointer.write_async({
-                        "fingerprint": ckpt_fp,
-                        "block_index": int(b),
-                        "h_done": int(h_effective),
-                        "n_iterations": int(n_iterations),
-                        "trajectory": [list(row) for row in trajectory],
-                        "quiet": int(quiet),
-                        "stopped": bool(stop),
-                        "h_block_padded": int(hb),
-                        "written_at": round(time.time(), 3),
-                    }, arrays)
-                if stop:
-                    stopped_early = True
-                    break
+                    curves = {"hist": hist, "cdf": cdf, "pac_area": pac}
+                    h_effective = h_done
+                    block.add(h_done=h_effective)
+                    trajectory.append([float(v) for v in pac])
+                    if block_callback is not None:
+                        block_callback(b, h_effective, trajectory[-1])
+                    stop = False
+                    if adaptive:
+                        quiet, stop = adaptive_decision(
+                            prev_pac, pac, quiet, adaptive_tol,
+                            adaptive_patience, adaptive_min_h, h_effective,
+                            n_iterations,
+                        )
+                    prev_pac = pac
+                    if ring.on:
+                        with region("engine.checkpoint"):
+                            flat = self.gather_state(state)
+                            if ring.writer:
+                                # Copies: the next block updates the state
+                                # in place.
+                                arrays = {f"state_{name}":
+                                          value.to("cpu", copy=True).numpy()
+                                          for name, value in flat.items()}
+                    if ring.writer:
+                        arrays.update({f"curve_{name}": v
+                                       for name, v in curves.items()})
+                        checkpointer.write_async({
+                            "fingerprint": ckpt_fp,
+                            "block_index": int(b),
+                            "h_done": int(h_effective),
+                            "n_iterations": int(n_iterations),
+                            "trajectory": [list(row) for row in trajectory],
+                            "quiet": int(quiet),
+                            "stopped": bool(stop),
+                            "h_block_padded": int(hb),
+                            "written_at": round(time.time(), 3),
+                        }, arrays)
+                    if stop:
+                        stopped_early = True
+                        break
         except BaseException as e:
             try:
                 e.integrity_checks_run = integrity_checks
@@ -664,6 +702,7 @@ class PairConsensusEngine:
             "device_memory": device_memory_stats(device) if on_cuda else {},
             "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
+            "lloyd": lloyd_since(lloyd0),
             "mesh": dict(self.mesh.shape),
             "processes": self.mesh.process_count,
         }

@@ -30,7 +30,12 @@ import torch
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.device import resolve_device
+from consensus_clustering_tpu_torch.models.kmeans import (
+    lloyd_counts,
+    lloyd_since,
+)
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.bitpack import (
     pack_cosample_planes,
@@ -150,30 +155,35 @@ def exact_curves_for_k(
     estimator's exactness refinement, end to end.
 
     Adds ``timing``: ``seconds`` (collect + tiles, after a device
-    synchronise), ``collect_seconds``, ``kernel_launches`` (this call's)
-    and ``device_memory`` (peak of this call; {} on the CPU).
+    synchronise), ``collect_seconds``, ``kernel_launches`` and ``lloyd``
+    (this call's launches and Lloyd loop counts) and ``device_memory``
+    (peak of this call; {} on the CPU).  The two phases are the ranges
+    ``cc.refine.labels`` and ``cc.refine.tiles``.
     """
     device = resolve_device(device)
     on_cuda = device.type == "cuda"
     build_kernels(device)
     with peak_memory_window(device):
-        launches0 = launch_counts()
+        launches0, lloyd0 = launch_counts(), lloyd_counts()
         t0 = time.perf_counter()
-        indices, labels = collect_resample_labels(clusterer, config, x, seed, k,
-                                                  device=device)
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        with region("refine.labels"):
+            indices, labels = collect_resample_labels(
+                clusterer, config, x, seed, k, device=device)
+            if on_cuda:
+                torch.cuda.synchronize(device)
         collect_seconds = time.perf_counter() - t0
         lo, hi = config.pac_idx
-        out = tiled_exact_curves(
-            indices, labels, config.n_samples, config.bins, lo, hi,
-            parity_zeros=config.parity_zeros, tile_rows=tile_rows,
-            tile_callback=tile_callback,
-        )
+        with region("refine.tiles"):
+            out = tiled_exact_curves(
+                indices, labels, config.n_samples, config.bins, lo, hi,
+                parity_zeros=config.parity_zeros, tile_rows=tile_rows,
+                tile_callback=tile_callback,
+            )
         out["timing"] = {
             "seconds": time.perf_counter() - t0,
             "collect_seconds": collect_seconds,
             "kernel_launches": launches_since(launches0),
+            "lloyd": lloyd_since(lloyd0),
             "device_memory": device_memory_stats(device) if on_cuda else {},
         }
         return out

@@ -18,6 +18,11 @@ B * n_init lanes.
 - Empty clusters respawn on the strided-bucket far points.
 - The restart with the lowest inertia wins.
 
+Each phase is a host range of :func:`..obs.tracing.region`
+(``cc.kmeans.seed``, ``cc.kmeans.lloyd`` with the step's blocking read
+``cc.kmeans.lloyd.wait`` inside it, ``cc.kmeans.assign``), and the Lloyd
+loop counts its fits, steps and lanes (:func:`lloyd_counts`).
+
 k-means++ runs ``torch.matmul`` products, as they are XLA GEMMs in the
 reference.  The final assignment (labels, and the inertia that picks the
 restart) goes through :func:`..ops.fused_block.assign_labels`: on the card
@@ -32,13 +37,33 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from consensus_clustering_tpu_torch import rng
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops.fused_block import assign_labels
 from consensus_clustering_tpu_torch.ops.lloyd import lloyd_step
+
+#: The Lloyd loop's counts since the process started (:func:`lloyd_counts`).
+_lloyd_totals = {"fits": 0, "steps": 0, "lane_steps": 0, "lane_slots": 0}
+
+
+def lloyd_counts() -> Dict[str, int]:
+    """The Lloyd loop's counts so far: ``fits`` (runs of the loop),
+    ``steps`` (its host trips that stepped lanes, one
+    :func:`..ops.lloyd.lloyd_step` each), ``lane_steps`` (the lanes those
+    steps ran) and ``lane_slots`` (each fit's steps times the lanes it
+    started with), so ``lane_steps / lane_slots`` is the share of a
+    step's lanes still running.  Host integers only: counting reads
+    nothing from the device."""
+    return dict(_lloyd_totals)
+
+
+def lloyd_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each of :func:`lloyd_counts` since ``before`` (an earlier reading)."""
+    return {name: n - before[name] for name, n in _lloyd_totals.items()}
 
 
 def _working_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +85,7 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[b, idx]
 
 
+@region("kmeans.seed")
 def _kmeanspp_init(
     keys: torch.Tensor, x: torch.Tensor, k: int, k_max: int
 ) -> torch.Tensor:
@@ -151,6 +177,7 @@ class KMeans:
         x = _working_dtype(x)
         return _kmeanspp_init(self._restart_keys(keys), x, int(k), k_max)
 
+    @region("kmeans.lloyd")
     def _lloyd(self, x, centroids, k, tol_abs):
         bsz, restarts, k_max, d = centroids.shape
         lanes = bsz * restarts
@@ -163,11 +190,16 @@ class KMeans:
         shift = torch.full((lanes,), float("inf"), dtype=x.dtype, device=x.device)
         iters = torch.zeros(lanes, dtype=torch.int64, device=x.device)
         valid = torch.arange(k_max, device=x.device) < k
+        steps = lane_steps = 0
         while True:
             active = (shift > tol_lane) & (iters < self.max_iter)
-            idx = torch.nonzero(active).squeeze(1)
-            if idx.numel() == 0:
+            with region("kmeans.lloyd.wait"):
+                idx = torch.nonzero(active).squeeze(1)
+                n_active = idx.numel()
+            if n_active == 0:
                 break
+            steps += 1
+            lane_steps += n_active
             src = lane_src[idx]
             cur = cen[idx]
             sums, counts, far_idx = lloyd_step(x, src, cur, k)
@@ -177,6 +209,10 @@ class KMeans:
             cen[idx] = new
             shift[idx] = step_shift
             iters[idx] += 1
+        _lloyd_totals["fits"] += 1
+        _lloyd_totals["steps"] += steps
+        _lloyd_totals["lane_steps"] += lane_steps
+        _lloyd_totals["lane_slots"] += steps * lanes
         return cen.reshape(bsz, restarts, k_max, d)
 
     def fit(
@@ -215,18 +251,19 @@ class KMeans:
             )
         tol_abs = self.tol * x.var(dim=1, correction=0).mean(dim=-1)
         centroids = self._lloyd(x, init_centroids.to(x.dtype), k, tol_abs)
-        restarts = centroids.shape[1]
-        lane_src = torch.arange(
-            bsz, dtype=torch.int32, device=x.device
-        ).repeat_interleave(restarts)
-        labels, d_min = assign_labels(
-            x, lane_src, centroids.reshape(bsz * restarts, k_max, d), k
-        )
-        labels = labels.reshape(bsz, restarts, n)
-        inertia = d_min.reshape(bsz, restarts, n).sum(dim=-1)
-        best = torch.argmin(inertia, dim=-1)
-        rows = torch.arange(bsz, device=x.device)
-        return labels[rows, best], centroids[rows, best]
+        with region("kmeans.assign"):
+            restarts = centroids.shape[1]
+            lane_src = torch.arange(
+                bsz, dtype=torch.int32, device=x.device
+            ).repeat_interleave(restarts)
+            labels, d_min = assign_labels(
+                x, lane_src, centroids.reshape(bsz * restarts, k_max, d), k
+            )
+            labels = labels.reshape(bsz, restarts, n)
+            inertia = d_min.reshape(bsz, restarts, n).sum(dim=-1)
+            best = torch.argmin(inertia, dim=-1)
+            rows = torch.arange(bsz, device=x.device)
+            return labels[rows, best], centroids[rows, best]
 
     def fit_predict(
         self,

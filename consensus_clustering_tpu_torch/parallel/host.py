@@ -22,7 +22,12 @@ import torch
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.device import resolve_device
+from consensus_clustering_tpu_torch.models.kmeans import (
+    lloyd_counts,
+    lloyd_since,
+)
 from consensus_clustering_tpu_torch.models.protocol import HostClusterer
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
 from consensus_clustering_tpu_torch.ops.coassoc import coassociation_counts
@@ -72,6 +77,7 @@ def _host_labels(clusterer, config, x, indices, k, seed, progress, n_jobs):
     return labels
 
 
+@region("engine")
 def run_host_sweep(
     clusterer: HostClusterer,
     config: SweepConfig,
@@ -93,7 +99,7 @@ def run_host_sweep(
     x = np.asarray(x)
     compile_seconds = build_kernels(device)
     with peak_memory_window(device):
-        launches0 = launch_counts()
+        launches0, lloyd0 = launch_counts(), lloyd_counts()
         t0 = time.perf_counter()
         key_resample = rng.split(rng.prng_key(seed, device))[0]
         indices_dev = resample_indices(
@@ -143,5 +149,6 @@ def run_host_sweep(
             ),
             "device_memory": device_memory_stats(device) if on_cuda else {},
             "kernel_launches": launches_since(launches0),
+            "lloyd": lloyd_since(lloyd0),
         }
         return host

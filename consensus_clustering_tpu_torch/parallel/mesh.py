@@ -36,6 +36,7 @@ gives the one-device result bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch.device import resolve_device
+from consensus_clustering_tpu_torch.obs.tracing import region
 
 RESAMPLE_AXIS = "h"
 ROW_AXIS = "n"
@@ -66,6 +68,15 @@ def _normalise(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+#: A merge over one shard moves nothing: no range for it.
+_ONE_SHARD = contextlib.nullcontext()
+
+
+def _merging(shards: int):
+    """The ``cc.mesh.merge`` range of a merge over ``shards`` shards."""
+    return region("mesh.merge") if shards > 1 else _ONE_SHARD
 
 
 class Mesh:
@@ -171,20 +182,21 @@ class Mesh:
         owner = self.owner(coords)
         if owner is None:
             return None
-        dev = self._dest(owner if dest is None else dest)
-        total = None
-        for c in coords:
-            if c in parts:
-                t = parts[c].to(dev, non_blocking=True)
-                total = t if total is None else total + t
-        ranks = self.ranks_of(coords)
-        if len(ranks) > 1:
-            from consensus_clustering_tpu_torch.parallel import distributed
+        with _merging(len(coords)):
+            dev = self._dest(owner if dest is None else dest)
+            total = None
+            for c in coords:
+                if c in parts:
+                    t = parts[c].to(dev, non_blocking=True)
+                    total = t if total is None else total + t
+            ranks = self.ranks_of(coords)
+            if len(ranks) > 1:
+                from consensus_clustering_tpu_torch.parallel import distributed
 
-            if any(total is p for p in parts.values()):
-                total = total.clone()  # the reduction is in place
-            distributed.all_reduce(total, ranks)
-        return total
+                if any(total is p for p in parts.values()):
+                    total = total.clone()  # the reduction is in place
+                distributed.all_reduce(total, ranks)
+            return total
 
     def all_gather(self, parts: Dict[Coord, torch.Tensor],
                    coords: Sequence[Coord], dim: int = 0,
@@ -199,25 +211,26 @@ class Mesh:
         the group of the processes holding ``coords`` all-gathers them,
         and every one of those processes concatenates the same shards.
         """
-        dev = self._dest(self.owner(coords) if dest is None else dest)
-        ranks = self.ranks_of(coords)
-        if len(ranks) == 1:
-            ts = [parts[c].to(dev, non_blocking=True) for c in coords]
-            return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
-        from consensus_clustering_tpu_torch.parallel import distributed
+        with _merging(len(coords)):
+            dev = self._dest(self.owner(coords) if dest is None else dest)
+            ranks = self.ranks_of(coords)
+            if len(ranks) == 1:
+                ts = [parts[c].to(dev, non_blocking=True) for c in coords]
+                return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
+            from consensus_clustering_tpu_torch.parallel import distributed
 
-        held = {rk: [c for c in coords if int(self.ranks[c]) == rk]
-                for rk in ranks}
-        mine = [parts[c].to(dev, non_blocking=True)
-                for c in held[self.rank]]
-        slots = max(len(cs) for cs in held.values())
-        mine += [torch.zeros_like(mine[0])] * (slots - len(mine))
-        got = distributed.all_gather(torch.stack(mine), ranks)
-        pieces = []
-        for c in coords:
-            rk = int(self.ranks[c])
-            pieces.append(got[ranks.index(rk)][held[rk].index(c)])
-        return torch.cat(pieces, dim)
+            held = {rk: [c for c in coords if int(self.ranks[c]) == rk]
+                    for rk in ranks}
+            mine = [parts[c].to(dev, non_blocking=True)
+                    for c in held[self.rank]]
+            slots = max(len(cs) for cs in held.values())
+            mine += [torch.zeros_like(mine[0])] * (slots - len(mine))
+            got = distributed.all_gather(torch.stack(mine), ranks)
+            pieces = []
+            for c in coords:
+                rk = int(self.ranks[c])
+                pieces.append(got[ranks.index(rk)][held[rk].index(c)])
+            return torch.cat(pieces, dim)
 
     def row_lines(self, g: int) -> List[List[Coord]]:
         """The 'n' lines of k-group ``g`` this process merges its row
@@ -269,16 +282,17 @@ class Mesh:
         exact for counts and bit patterns alike."""
         if not self.splits_k():
             return values
-        from consensus_clustering_tpu_torch.parallel import distributed
+        with region("mesh.merge"):
+            from consensus_clustering_tpu_torch.parallel import distributed
 
-        buf = torch.zeros((len(group_of),) + tuple(like.shape),
-                          dtype=like.dtype, device=dest)
-        for i, g in enumerate(group_of):
-            first = min(int(r) for r in self.ranks[g].flat)
-            if i in values and first == self.rank:
-                buf[i] = values[i].to(dest)
-        distributed.all_reduce(buf, self.process_ranks)
-        return {i: buf[i] for i in range(len(group_of))}
+            buf = torch.zeros((len(group_of),) + tuple(like.shape),
+                              dtype=like.dtype, device=dest)
+            for i, g in enumerate(group_of):
+                first = min(int(r) for r in self.ranks[g].flat)
+                if i in values and first == self.rank:
+                    buf[i] = values[i].to(dest)
+            distributed.all_reduce(buf, self.process_ranks)
+            return {i: buf[i] for i in range(len(group_of))}
 
 
 def _process_devices(devices) -> List[ProcessDevice]:

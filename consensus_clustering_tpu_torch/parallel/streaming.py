@@ -54,7 +54,12 @@ import torch
 
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import (
+    lloyd_counts,
+    lloyd_since,
+)
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops import launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
 from consensus_clustering_tpu_torch.ops.bitpack import (
@@ -416,41 +421,46 @@ class StreamingSweep:
         for g in range(geo.n_k):
             if not mesh.holds(g):
                 continue  # another process runs this k-group's Ks
-            for r in mesh.held_rows(g):
-                parts = {c: _cosample(on(indices, c)[row_lanes(geo, c[1])],
-                                      n, geo, r, False)
-                         for c in local_column(mesh, g, r)}
-                state["iij"][(g, r)] += mesh.psum(
-                    parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            with region("engine.accumulate"):
+                for r in mesh.held_rows(g):
+                    parts = {c: _cosample(
+                        on(indices, c)[row_lanes(geo, c[1])], n, geo, r,
+                        False) for c in local_column(mesh, g, r)}
+                    state["iij"][(g, r)] += mesh.psum(
+                        parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
             x_sub = self._lanes(on, indices, x, g, h_start, h_total)
             for j, i, k in self._group_slots(g):
-                labels = {c: _shard_labels(self.clusterer, config, geo, c,
-                                           on(key_cluster, c), k, xs,
-                                           h_total, h_start)
-                          for c, xs in x_sub.items()}
+                with region("engine.cluster"):
+                    labels = {c: _shard_labels(self.clusterer, config, geo,
+                                               c, on(key_cluster, c), k, xs,
+                                               h_total, h_start)
+                              for c, xs in x_sub.items()}
                 lines = gather_lines(mesh, labels, g)
                 hist = {}
                 for r in mesh.held_rows(g):
-                    parts = {}
-                    for c in local_column(mesh, g, r):
-                        row = lines[c[1]].to(mesh.device(c),
-                                             non_blocking=True)
-                        parts[c] = _coassoc(
-                            row, on(indices, c)[row_lanes(geo, c[1])], n,
-                            k_max, config, geo, r, False)
-                    mij = state["mij"][(g, r)][j]
-                    mij += mesh.psum(parts,
-                                     mesh.axis((g, 0, r), RESAMPLE_AXIS))
+                    with region("engine.accumulate"):
+                        parts = {}
+                        for c in local_column(mesh, g, r):
+                            row = lines[c[1]].to(mesh.device(c),
+                                                 non_blocking=True)
+                            parts[c] = _coassoc(
+                                row, on(indices, c)[row_lanes(geo, c[1])],
+                                n, k_max, config, geo, r, False)
+                        mij = state["mij"][(g, r)][j]
+                        mij += mesh.psum(parts,
+                                         mesh.axis((g, 0, r), RESAMPLE_AXIS))
                     # Curves from the ACCUMULATED counts: the consensus
                     # over every resample so far, at the last block the
                     # monolithic input.
                     o = mesh.row_owner(g, r)
-                    hist[r] = consensus_hist_from_counts(
-                        mij, state["iij"][(g, r)], n, r * geo.n_local,
-                        config.bins,
-                        torch.zeros(config.bins, dtype=torch.int64,
-                                    device=mesh.device(o)))
-                counts[i] = mesh.merge_rows(g, hist, dest=self.device)
+                    with region("engine.evaluate"):
+                        hist[r] = consensus_hist_from_counts(
+                            mij, state["iij"][(g, r)], n, r * geo.n_local,
+                            config.bins,
+                            torch.zeros(config.bins, dtype=torch.int64,
+                                        device=mesh.device(o)))
+                with region("engine.evaluate"):
+                    counts[i] = mesh.merge_rows(g, hist, dest=self.device)
         return self._merge_counts(counts)
 
     def _merge_counts(self, counts):
@@ -476,75 +486,81 @@ class StreamingSweep:
             # Each shard's 'h' row's plan in its own element columns, and
             # the bit offset of that row's first resample in the block.
             cols, my_cop = {}, {}
-            for r in mesh.held_rows(g):
-                parts = {}
-                for c in local_column(mesh, g, r):
-                    rows = on(indices, c)[row_lanes(geo, c[1])]
-                    lo = r * nlp
-                    cols[c] = torch.where((rows >= lo) & (rows < lo + nlp),
-                                          rows - lo, -1)
-                    my_cop[c] = parts[c] = pack_cosample_planes(
-                        cols[c], nlp, n_words=wb,
-                        row0=row_lanes(geo, c[1]).start)
-                state["coplanes"][(g, r)][word0:word0 + wb] = mesh.psum(
-                    parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            with region("engine.accumulate"):
+                for r in mesh.held_rows(g):
+                    parts = {}
+                    for c in local_column(mesh, g, r):
+                        rows = on(indices, c)[row_lanes(geo, c[1])]
+                        lo = r * nlp
+                        cols[c] = torch.where(
+                            (rows >= lo) & (rows < lo + nlp), rows - lo, -1)
+                        my_cop[c] = parts[c] = pack_cosample_planes(
+                            cols[c], nlp, n_words=wb,
+                            row0=row_lanes(geo, c[1]).start)
+                    state["coplanes"][(g, r)][word0:word0 + wb] = mesh.psum(
+                        parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
             x_sub = self._lanes(on, indices, x, g, h_start, h_total)
             slots = self._group_slots(g)
             for j, _, k in slots:
                 if self.fuse_block == "fused":
                     # Padded to a shard's lanes for the gather, then cut to
                     # the row's valid lanes (a prefix of its lanes).
-                    lines = gather_lines(mesh, {
-                        c: _pad_lanes(_shard_centroids(
+                    with region("engine.cluster"):
+                        fitted = {c: _pad_lanes(_shard_centroids(
                             self.clusterer, config, geo, c,
                             on(key_cluster, c), k, xs, h_start),
-                            geo.local_h)
-                        for c, xs in x_sub.items()}, g)
+                            geo.local_h) for c, xs in x_sub.items()}
+                    lines = gather_lines(mesh, fitted, g)
                     lines = {h: t[:self._row_valid(g, h, h_start, h_total)]
                              for h, t in lines.items()}
                 else:
-                    lines = gather_lines(mesh, {
-                        c: _shard_labels(self.clusterer, config, geo, c,
-                                         on(key_cluster, c), k, xs,
-                                         h_total, h_start)
-                        for c, xs in x_sub.items()}, g)
-                for r in mesh.held_rows(g):
-                    parts = {}
-                    for c in local_column(mesh, g, r):
-                        g0 = row_lanes(geo, c[1]).start
-                        row = lines[c[1]].to(mesh.device(c),
-                                             non_blocking=True)
-                        if self.fuse_block == "fused":
-                            parts[c] = fused_assign_pack(
-                                x_cols[c], row, k, my_cop[c], g0,
-                                n_words=wb)
-                        else:
-                            parts[c] = pack_label_planes(
-                                row, cols[c], k_max, nlp, n_words=wb,
-                                row0=g0)
-                    state["planes"][(g, r)][j, :, word0:word0 + wb] = (
-                        mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS)))
+                    with region("engine.cluster"):
+                        fitted = {c: _shard_labels(
+                            self.clusterer, config, geo, c,
+                            on(key_cluster, c), k, xs, h_total, h_start)
+                            for c, xs in x_sub.items()}
+                    lines = gather_lines(mesh, fitted, g)
+                with region("engine.accumulate"):
+                    for r in mesh.held_rows(g):
+                        parts = {}
+                        for c in local_column(mesh, g, r):
+                            g0 = row_lanes(geo, c[1]).start
+                            row = lines[c[1]].to(mesh.device(c),
+                                                 non_blocking=True)
+                            if self.fuse_block == "fused":
+                                parts[c] = fused_assign_pack(
+                                    x_cols[c], row, k, my_cop[c], g0,
+                                    n_words=wb)
+                            else:
+                                parts[c] = pack_label_planes(
+                                    row, cols[c], k_max, nlp, n_words=wb,
+                                    row0=g0)
+                        state["planes"][(g, r)][j, :, word0:word0 + wb] = (
+                            mesh.psum(parts,
+                                      mesh.axis((g, 0, r), RESAMPLE_AXIS)))
             # The evaluation, per row tile of each row shard: one Iij tile,
             # then every K's Mij tile from its planes, histogrammed through
             # its Cij (formed in the kernel's registers) and dropped: the
             # only int32 counts that ever exist in the packed step.  The
             # planes are gathered along 'n' once a block (across processes,
             # from every process holding the group).
-            held = mesh.held_rows(g)
-            first = mesh.device(mesh.row_owner(g, held[0]))
-            planes_all = self._gather_rows(state["planes"], g, 3)
-            cop_all = self._gather_rows(state["coplanes"], g, 1)
-            hist = {}
-            for r in held:
-                dev = mesh.device(mesh.row_owner(g, r))
-                planes = planes_all.to(dev, non_blocking=True)
-                cop = cop_all.to(dev, non_blocking=True)
-                words = planes[:len(slots)].reshape(
-                    len(slots), k_max * self._w_cap, self._n_pad2)
-                hist[r] = packed_hist_counts(
-                    words, cop, config.bins, self._tile_r,
-                    n_valid=config.n_samples, rows=(r * nlp, (r + 1) * nlp))
-            merged = mesh.merge_rows(g, hist, dest=first).to(self.device)
+            with region("engine.evaluate"):
+                held = mesh.held_rows(g)
+                first = mesh.device(mesh.row_owner(g, held[0]))
+                planes_all = self._gather_rows(state["planes"], g, 3)
+                cop_all = self._gather_rows(state["coplanes"], g, 1)
+                hist = {}
+                for r in held:
+                    dev = mesh.device(mesh.row_owner(g, r))
+                    planes = planes_all.to(dev, non_blocking=True)
+                    cop = cop_all.to(dev, non_blocking=True)
+                    words = planes[:len(slots)].reshape(
+                        len(slots), k_max * self._w_cap, self._n_pad2)
+                    hist[r] = packed_hist_counts(
+                        words, cop, config.bins, self._tile_r,
+                        n_valid=config.n_samples,
+                        rows=(r * nlp, (r + 1) * nlp))
+                merged = mesh.merge_rows(g, hist, dest=first).to(self.device)
             for (_, i, _), row in zip(slots, merged):
                 counts[i] = row
         return self._merge_counts(counts)
@@ -579,7 +595,8 @@ class StreamingSweep:
         pair = rng.split(key)
         step = self._step_packed if self._packed else self._step_dense
         counts = step(state, x, x_cols, pair[0], pair[1], h_start, h_total)
-        return curves_from_counts(self.config, counts)
+        with region("engine.evaluate"):
+            return curves_from_counts(self.config, counts)
 
     def finalize(self, state) -> Dict[str, torch.Tensor]:
         """Mij (nK, N, N), Iij and Cij from the final state; in packed mode
@@ -683,6 +700,7 @@ class StreamingSweep:
     # -- the driver ------------------------------------------------------
 
     @in_peak_memory_window
+    @region("engine")
     def run(
         self,
         x: np.ndarray,
@@ -694,6 +712,7 @@ class StreamingSweep:
         adaptive_min_h: Optional[int] = None,
         checkpointer: Optional[StreamCheckpointer] = None,
         integrity_check_every: Optional[int] = None,
+        tracer=None,
         capture_state: bool = False,
     ) -> Dict[str, Any]:
         """Stream the sweep; returns host results and streaming stats.
@@ -723,10 +742,22 @@ class StreamingSweep:
         its state the ring.  An exception leaving ``run`` carries
         ``integrity_checks_run``.
 
+        ``tracer`` (an :class:`..obs.tracing.Tracer`, or anything with its
+        ``record(name, seconds, **fields)``; the serve executor passes a
+        child of its ``execute`` span) gets the run's timed spans:
+        ``resume_restore`` when a checkpoint generation is restored, and
+        for each block ``integrity_check`` (the sentinel, where due),
+        ``host_evaluate`` (the curves' copy to the host, which waits for
+        the block's device work) and ``h_block`` (the block's wall
+        clock), each at the boundary of its ``cc.engine.*`` range
+        (:func:`..obs.tracing.region`).  None records nothing.
+
         ``timing`` holds ``run_seconds``, ``resamples_per_second``
         (h_effective x nK / run_seconds), ``device_memory``, ``device``,
-        ``kernel_launches`` and, packed, ``packed_kernel`` (cuda|plain),
-        ``fuse_block`` (fused|unfused) and, fused, ``fused_kernel``.
+        ``kernel_launches``, ``lloyd`` (the Lloyd loop's counts,
+        :func:`..models.kmeans.lloyd_counts`) and, packed,
+        ``packed_kernel`` (cuda|plain), ``fuse_block`` (fused|unfused)
+        and, fused, ``fused_kernel``.
         ``streaming`` adds the resilience accounting: ``resumed_from_block``
         (0: a fresh run), ``checkpoint_writes``, ``integrity_checks`` and
         their seconds (``restore_seconds``, ``checkpoint_copy_seconds``,
@@ -770,7 +801,7 @@ class StreamingSweep:
             )
         device = self.device
         on_cuda = device.type == "cuda"
-        launches0 = launch_counts()
+        launches0, lloyd0 = launch_counts(), lloyd_counts()
         t0 = time.perf_counter()
         xd = torch.as_tensor(np.asarray(x)).to(device=device,
                                                dtype=config.torch_dtype)
@@ -832,6 +863,10 @@ class StreamingSweep:
                 if on_cuda:
                     torch.cuda.synchronize(device)
             seconds["restore"] = time.perf_counter() - t_restore
+            if resume is not None and tracer is not None:
+                tracer.record("resume_restore", seconds["restore"],
+                              resumed_from_block=start_block,
+                              h_done=h_effective, terminal=resume_terminal)
         if state is None:
             state = self.init_state()
         integrity_checks = 0
@@ -849,70 +884,81 @@ class StreamingSweep:
         try:
             for b in range(start_block, start_block if resume_terminal
                            else n_blocks):
-                faults.fire("block_start", index=b)
-                curves = self.step(state, xd, key, b * self._hb,
-                                   n_iterations, x_cols=x_cols)
-                h_done = min((b + 1) * self._hb, n_iterations)
-                nbits = faults.corrupt("accumulator", index=b)
-                if nbits:
-                    self._flip_state_bits(state, nbits, b, h_done)
-                if check_due(b):
-                    if on_cuda:
-                        torch.cuda.synchronize(device)
-                    t_check = time.perf_counter()
-                    integrity_checks += 1
-                    found = agree_counts(self.mesh, self._integrity_stats(
-                        self.gather_state(state), h_done, b))
-                    seconds["integrity"] += time.perf_counter() - t_check
-                    bad = {name: v for name, v in found.items() if v}
-                    if bad:
-                        raise IntegrityError(
-                            "accumulator",
-                            f"integrity sentinel: block {b} state violates "
-                            f"the count invariants ({bad}): corrupt "
-                            "accumulator; retry from the last verified "
-                            "checkpoint",
-                            block=b, details=bad,
-                            checks_run=integrity_checks,
+                with region("engine.block", "h_block", tracer,
+                            block=b) as block:
+                    faults.fire("block_start", index=b)
+                    curves = self.step(state, xd, key, b * self._hb,
+                                       n_iterations, x_cols=x_cols)
+                    h_done = min((b + 1) * self._hb, n_iterations)
+                    nbits = faults.corrupt("accumulator", index=b)
+                    if nbits:
+                        self._flip_state_bits(state, nbits, b, h_done)
+                    if check_due(b):
+                        if on_cuda:
+                            torch.cuda.synchronize(device)
+                        with region("engine.integrity", "integrity_check",
+                                    tracer, block=b) as check:
+                            integrity_checks += 1
+                            found = agree_counts(
+                                self.mesh, self._integrity_stats(
+                                    self.gather_state(state), h_done, b))
+                            bad = {name: v for name, v in found.items()
+                                   if v}
+                            check.add(violations=len(bad))
+                        seconds["integrity"] += check.seconds
+                        if bad:
+                            raise IntegrityError(
+                                "accumulator",
+                                f"integrity sentinel: block {b} state "
+                                f"violates the count invariants ({bad}): "
+                                "corrupt accumulator; retry from the last "
+                                "verified checkpoint",
+                                block=b, details=bad,
+                                checks_run=integrity_checks,
+                            )
+                    with region("engine.evaluate", "host_evaluate", tracer,
+                                block=b):
+                        host = {name: v.cpu().numpy()
+                                for name, v in curves.items()}
+                    h_effective = h_done
+                    block.add(h_done=h_effective)
+                    pac = host["pac_area"]
+                    trajectory.append([float(v) for v in pac])
+                    if block_callback is not None:
+                        block_callback(b, h_effective, trajectory[-1])
+                    stop = False
+                    if adaptive:
+                        quiet, stop = adaptive_decision(
+                            prev_pac, pac, quiet, adaptive_tol,
+                            adaptive_patience, adaptive_min_h, h_effective,
+                            n_iterations,
                         )
-                host = {name: v.cpu().numpy() for name, v in curves.items()}
-                h_effective = h_done
-                pac = host["pac_area"]
-                trajectory.append([float(v) for v in pac])
-                if block_callback is not None:
-                    block_callback(b, h_effective, trajectory[-1])
-                stop = False
-                if adaptive:
-                    quiet, stop = adaptive_decision(
-                        prev_pac, pac, quiet, adaptive_tol,
-                        adaptive_patience, adaptive_min_h, h_effective,
-                        n_iterations,
-                    )
-                prev_pac = pac
-                if ring.on:
-                    t_copy = time.perf_counter()
-                    flat = self.gather_state(state)
+                    prev_pac = pac
+                    if ring.on:
+                        with region("engine.checkpoint"):
+                            t_copy = time.perf_counter()
+                            flat = self.gather_state(state)
+                            if ring.writer:
+                                arrays = self._host_snapshot(flat)
+                            seconds["copy"] += time.perf_counter() - t_copy
                     if ring.writer:
-                        arrays = self._host_snapshot(flat)
-                    seconds["copy"] += time.perf_counter() - t_copy
-                if ring.writer:
-                    arrays.update({f"curve_{name}": v
-                                   for name, v in host.items()})
-                    checkpointer.write_async({
-                        "fingerprint": ckpt_fp,
-                        "block_index": int(b),
-                        "h_done": int(h_effective),
-                        "n_iterations": int(n_iterations),
-                        "trajectory": [list(row) for row in trajectory],
-                        "quiet": int(quiet),
-                        "stopped": bool(stop),
-                        "accum_repr": config.accum_repr,
-                        "hb_pad": int(self._hb),
-                        "written_at": round(time.time(), 3),
-                    }, arrays)
-                if stop:
-                    stopped_early = True
-                    break
+                        arrays.update({f"curve_{name}": v
+                                       for name, v in host.items()})
+                        checkpointer.write_async({
+                            "fingerprint": ckpt_fp,
+                            "block_index": int(b),
+                            "h_done": int(h_effective),
+                            "n_iterations": int(n_iterations),
+                            "trajectory": [list(row) for row in trajectory],
+                            "quiet": int(quiet),
+                            "stopped": bool(stop),
+                            "accum_repr": config.accum_repr,
+                            "hb_pad": int(self._hb),
+                            "written_at": round(time.time(), 3),
+                        }, arrays)
+                    if stop:
+                        stopped_early = True
+                        break
         except BaseException as e:
             try:
                 e.integrity_checks_run = integrity_checks
@@ -967,6 +1013,7 @@ class StreamingSweep:
             "device_memory": device_memory_stats(device) if on_cuda else {},
             "device_memory_per_device": per_device_memory(self.mesh),
             "kernel_launches": launches_since(launches0),
+            "lloyd": lloyd_since(lloyd0),
             "mesh": dict(self.mesh.shape),
             "processes": self.mesh.process_count,
         }

@@ -32,7 +32,12 @@ import torch
 
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.config import SweepConfig
+from consensus_clustering_tpu_torch.models.kmeans import (
+    lloyd_counts,
+    lloyd_since,
+)
 from consensus_clustering_tpu_torch.models.protocol import Clusterer
+from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops import _build, launch_counts
 from consensus_clustering_tpu_torch.ops.analysis import (
     cdf_pac_from_counts,
@@ -363,12 +368,14 @@ def build_sweep(
             if not mesh.holds(g):
                 continue  # another process runs this k-group's Ks
             iij = {}
-            for r in mesh.held_rows(g):
-                parts = {}
-                for c in local_column(mesh, g, r):
-                    rows = on(indices, c)[row_lanes(geo, c[1])]
-                    parts[c] = _cosample(rows, n, geo, r, packed)
-                iij[r] = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
+            with region("engine.accumulate"):
+                for r in mesh.held_rows(g):
+                    parts = {}
+                    for c in local_column(mesh, g, r):
+                        rows = on(indices, c)[row_lanes(geo, c[1])]
+                        parts[c] = _cosample(rows, n, geo, r, packed)
+                    iij[r] = mesh.psum(parts,
+                                       mesh.axis((g, 0, r), RESAMPLE_AXIS))
             # Each k-group's Iij is the same: a group whose rows span
             # processes merges it with those processes.
             if config.store_matrices and (iij_full is None
@@ -384,29 +391,34 @@ def build_sweep(
                 if orig[p] >= geo.n_ks:
                     continue  # K padding: a repeat of the last K
                 k = geo.k_values_pad[p]
-                labels = {c: _shard_labels(clusterer, config, geo, c,
-                                           on(key_cluster, c), k, x_sub[c],
-                                           h_total)
-                          for c in shards}
+                with region("engine.cluster"):
+                    labels = {c: _shard_labels(clusterer, config, geo, c,
+                                               on(key_cluster, c), k,
+                                               x_sub[c], h_total)
+                              for c in shards}
                 lines = gather_lines(mesh, labels, g)
                 owner_hist = {}
                 mij_rows = {}
                 for r in mesh.held_rows(g):
-                    parts = {}
-                    for c in local_column(mesh, g, r):
-                        rows = on(indices, c)[row_lanes(geo, c[1])]
-                        row = lines[c[1]].to(mesh.device(c),
-                                             non_blocking=True)
-                        parts[c] = _coassoc(row, rows, n, k_max, config,
-                                            geo, r, packed)
-                    mij = mesh.psum(parts, mesh.axis((g, 0, r), RESAMPLE_AXIS))
-                    cij = consensus_matrix(mij, iij[r],
-                                           row_offset=r * geo.n_local)
-                    owner_hist[r] = consensus_hist_counts(
-                        cij, n, r * geo.n_local, config.bins)
+                    with region("engine.accumulate"):
+                        parts = {}
+                        for c in local_column(mesh, g, r):
+                            rows = on(indices, c)[row_lanes(geo, c[1])]
+                            row = lines[c[1]].to(mesh.device(c),
+                                                 non_blocking=True)
+                            parts[c] = _coassoc(row, rows, n, k_max, config,
+                                                geo, r, packed)
+                        mij = mesh.psum(parts,
+                                        mesh.axis((g, 0, r), RESAMPLE_AXIS))
+                        cij = consensus_matrix(mij, iij[r],
+                                               row_offset=r * geo.n_local)
+                    with region("engine.evaluate"):
+                        owner_hist[r] = consensus_hist_counts(
+                            cij, n, r * geo.n_local, config.bins)
                     if config.store_matrices:
                         mij_rows[r] = mij
-                counts[orig[p]] = primary(mesh.merge_rows(g, owner_hist))
+                with region("engine.evaluate"):
+                    counts[orig[p]] = primary(mesh.merge_rows(g, owner_hist))
                 if progress_callback is not None:
                     _report(progress_callback, config, k, counts[orig[p]])
                 if config.store_matrices:
@@ -423,8 +435,9 @@ def build_sweep(
             for i in sorted(set(counts) - ran):
                 _report(progress_callback, config, config.k_values[i],
                         counts[i])
-        out = curves_from_counts(config,
-                                 [counts[i] for i in range(geo.n_ks)])
+        with region("engine.evaluate"):
+            out = curves_from_counts(config,
+                                     [counts[i] for i in range(geo.n_ks)])
         if config.store_matrices:
             out["iij"] = iij_full
             out["mij"] = torch.stack([mijs[i] for i in range(geo.n_ks)])
@@ -543,9 +556,10 @@ def run_sweep(
     (peak allocator bytes of this run on the primary device; {} on the
     CPU), ``device_memory_per_device`` (the same for each distinct device
     of the mesh this process holds), ``kernel_launches`` (launches of
-    each kernel in this run), ``mesh`` (its axis sizes), ``processes``
-    (how many processes the mesh spans) and, for a packed sweep,
-    ``packed_kernel`` (``cuda`` or ``plain``).
+    each kernel in this run), ``lloyd`` (the Lloyd loop's counts in this
+    run, :func:`..models.kmeans.lloyd_counts`), ``mesh`` (its axis
+    sizes), ``processes`` (how many processes the mesh spans) and, for a
+    packed sweep, ``packed_kernel`` (``cuda`` or ``plain``).
     """
     sweep = build_sweep(clusterer, config, device, progress_callback, mesh)
     mesh = sweep.mesh
@@ -557,14 +571,17 @@ def run_sweep(
     with contextlib.ExitStack() as windows:
         for dev in mesh.local_devices:
             windows.enter_context(peak_memory_window(dev))
-        launches0 = launch_counts()
-        r0 = time.perf_counter()
-        out = sweep(x_dev, key)
-        host = {name: value.cpu().numpy() for name, value in out.items()}
-        for dev in mesh.local_devices:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        run_seconds = time.perf_counter() - r0
+        launches0, lloyd0 = launch_counts(), lloyd_counts()
+        with region("engine"):
+            r0 = time.perf_counter()
+            out = sweep(x_dev, key)
+            with region("engine.evaluate"):
+                host = {name: value.cpu().numpy()
+                        for name, value in out.items()}
+            for dev in mesh.local_devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            run_seconds = time.perf_counter() - r0
         total = config.n_iterations * len(config.k_values)
         host["timing"] = {
             "compile_seconds": compile_seconds,
@@ -576,6 +593,7 @@ def run_sweep(
             "device_memory": device_memory_stats(device) if on_cuda else {},
             "device_memory_per_device": per_device_memory(mesh),
             "kernel_launches": launches_since(launches0),
+            "lloyd": lloyd_since(lloyd0),
             "mesh": dict(mesh.shape),
             "processes": mesh.process_count,
         }

@@ -1,4 +1,4 @@
-"""Where the time of a sweep goes on the GPU: stages, kernels, idle share.
+"""Where the time of a sweep goes on the GPU: layers, kernels, idle share.
 
     python -m consensus_clustering_tpu_torch.profile_sweep [--ks 2,...,20] [--profile-k 8] [--stream H_BLOCK]
     python -m consensus_clustering_tpu_torch.profile_sweep --ab-ring H_BLOCK [--rounds N]
@@ -9,25 +9,23 @@ Runs the headline configuration of ``chip_smoke.py`` (make_blobs N=5000
 d=50, H=500, KMeans(n_init=3), cluster_batch=16, chunk_size=4, seed 23)
 after a warm-up, through the monolithic dense sweep or, with ``--stream``,
 through the streaming engine (``stream_h_block=H_BLOCK``,
-``accum_repr="packed"``, ``fuse_block="auto"``), whose stages split into
-clustering, packing (B4) and evaluation (B3, then B1 from the counts):
+``accum_repr="packed"``, ``fuse_block="auto"``):
 
-1. over ``--ks``, plain, for the wall clock and resamples/s;
-2. over ``--ks``, with each stage of the sweep wrapped, from here, in a
-   timer that synchronises the device before and after (the library
-   carries no instrumentation), for the wall seconds of every stage
-   (inclusive: ``cluster`` holds its ``cluster/*`` parts), and the
-   Lloyd steps counted by their active lanes and by the lanes a block of
-   B2 takes (``lloyd_lanes``);
-3. for the single K ``--profile-k``, plain and then under
-   ``torch.profiler``, for the device time of every kernel and the
-   device idle share, 1 - (summed kernel time) / (plain wall clock): the
-   profiler slows the host, not the kernels.  One K keeps the trace
-   small, because reducing it on the host (``key_averages``) takes far
-   longer than the run it traces.
+1. over ``--ks``, plain, for the wall clock, resamples/s, the kernels'
+   launches and the Lloyd loop's counts (``lloyd_lanes``:
+   :func:`..models.kmeans.lloyd_counts`, and ``occupancy``, the share of
+   each step's lanes still running);
+2. for the single K ``--profile-k``, plain and then under
+   ``torch.profiler``, for the device time of every kernel, the device
+   idle share, 1 - (summed kernel time) / (plain wall clock) (the
+   profiler slows the host, not the kernels), and the program's own
+   layers: each ``cc.*`` range of :func:`..obs.tracing.region` with its
+   host seconds (inclusive and self), the device seconds and kernels
+   launched with it innermost, and the idle seconds of the gaps that
+   began in it (:func:`range_breakdown`).  One K keeps the trace small.
 
-Prints the card's name and power limit, then one JSON line after parts 1
-and 2 and one after part 3, so a cut run keeps what it measured.  With
+Prints the card's name and power limit, then one JSON line after part 1
+and one after part 2, so a cut run keeps what it measured.  With
 ``--ab H_BLOCK`` it instead times the monolithic and the streamed sweep in
 turns (monolithic, streamed, streamed, monolithic) on the same card and
 prints one JSON line; ``--ab-ring H_BLOCK`` times, the same way, the
@@ -38,18 +36,17 @@ the ring's, the host copy's and the sentinel's seconds.  Both print each
 run's device busy share as NVML samples it (``nvidia-smi``
 ``utilization.gpu``); ``--rounds N`` repeats the turns N times.
 
-``--estimate`` does parts 1-3 for the sampled-pair estimator at its own
+``--estimate`` does parts 1-2 for the sampled-pair estimator at its own
 scale (``chip_smoke.py``'s ``estimate``: the same generator at N=100,000,
 H=``--h`` (default 100), blocks of 100, packed pairs, 2^17 pairs, then
-the exact refinement of K=8): stages plan, the pairs' Iij and Mij
-increments, clustering, the pair histogram, and the refinement's label
-collection and tiles (B3, B1); part 1 also samples NVML's busy share.
-``--append`` times the append of ``chip_smoke.py`` (a parent of the
-headline's first 4,000 rows, H=400, then all 5,000 rows with 100 new
-resamples), plain with NVML's busy share and then by stage: the new
-lanes' stream (and its stages), store load and verify, staleness, merge,
-Iij accounting, the merged curves and the store write.  Needs a CUDA
-device.
+the exact refinement of K=8, whose ranges are ``cc.refine.*``); part 1
+also samples NVML's busy share.  ``--append`` times the append of
+``chip_smoke.py`` (a parent of the headline's first 4,000 rows, H=400,
+then all 5,000 rows with 100 new resamples), plain with NVML's busy share
+and then once under ``torch.profiler`` for part 2's breakdown: the new
+lanes' stream is the ``cc.engine`` range, and the append's other work
+(store, staleness, merge, curves) is the busy time no range holds.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,23 +54,23 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import functools
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from consensus_clustering_tpu_torch.config import SweepConfig
 from consensus_clustering_tpu_torch.data import make_blobs
-from consensus_clustering_tpu_torch.models import kmeans
 from consensus_clustering_tpu_torch.models.kmeans import KMeans
-from consensus_clustering_tpu_torch.ops import tiles
-from consensus_clustering_tpu_torch.ops.fused_block import lanes_per_block
-from consensus_clustering_tpu_torch.parallel import streaming, sweep
+from consensus_clustering_tpu_torch.obs.tracing import (
+    RANGE_PREFIX,
+    recording_ranges,
+)
 from consensus_clustering_tpu_torch.parallel.streaming import (
     run_streaming_sweep,
 )
@@ -81,37 +78,6 @@ from consensus_clustering_tpu_torch.parallel.sweep import run_sweep
 from consensus_clustering_tpu_torch.resilience.blocks import (
     StreamCheckpointer,
 )
-
-_CLUSTER_STAGES = (
-    (kmeans, "_kmeanspp_init", "cluster/kmeans++"),
-    (kmeans, "lloyd_step", "cluster/lloyd_step"),
-    (kmeans, "_apply_update", "cluster/update"),
-    (kmeans, "assign_labels", "cluster/final_assign"),
-)
-# (module, attribute, stage name): the stages of each engine.
-_STAGES = {
-    "monolithic": (
-        (sweep, "resample_indices", "plan"),
-        (sweep, "cosample_counts", "iij"),
-        (sweep, "fit_resample_lanes", "cluster"),
-        *_CLUSTER_STAGES,
-        (sweep, "coassociation_counts", "mij"),
-        (sweep, "consensus_matrix", "cij"),
-        (sweep, "consensus_hist_counts", "hist"),
-        (sweep, "cdf_pac_from_counts", "curves"),
-    ),
-    "stream": (
-        (streaming, "resample_indices", "plan"),
-        (streaming, "pack_cosample_planes", "coplanes"),
-        (sweep, "fit_resample_lanes", "cluster"),
-        *_CLUSTER_STAGES,
-        (streaming, "fused_assign_pack", "pack (B4)"),
-        (streaming, "pack_label_planes", "pack (unfused)"),
-        (tiles, "packed_coassoc_counts", "popcount (B3)"),
-        (tiles, "consensus_hist_from_counts", "cij+hist (B1)"),
-        (sweep, "cdf_pac_from_counts", "curves"),
-    ),
-}
 
 #: Rows of the estimator's data (``chip_smoke.py``'s ``estimate``).
 ESTIMATE_N = 100_000
@@ -136,61 +102,128 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _self_device_us(event) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        value = getattr(event, attr, None)
-        if value is not None:
-            return float(value)
-    return 0.0
+class Event(NamedTuple):
+    """One event of a kineto trace, as :func:`range_breakdown` reads it."""
+
+    name: str
+    kind: str  # "range" (a cc.* range), "launch", "device" or "other"
+    start: int  # ns
+    end: int  # ns
+    corr: int
 
 
-def _timed_stages(km, config, x, run, stages):
-    """Stage seconds and calls of one run, and the Lloyd steps' lanes:
-    how many steps ran each number of active lanes, and the steps and
-    seconds at each lanes-per-block of B2's grid."""
-    seconds = collections.defaultdict(float)
-    calls = collections.Counter()
-    lanes_hist = collections.Counter()
-    per_block = collections.defaultdict(lambda: [0, 0.0])
-    originals = [(m, a, getattr(m, a)) for m, a, _ in stages]
+#: :func:`range_breakdown`'s entry for what no range launched or began.
+NO_RANGE = "(no range)"
+#: Host calls that put work on the device: their correlation ids tie the
+#: device operations to the host range that launched them.
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                 "cuMemcpy", "cuMemset", "cudaGraphLaunch")
 
-    def timed(fn, name):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            seconds[name] += dt
-            calls[name] += 1
-            if name == "cluster/lloyd_step":
-                xs, lane_src = args[0], args[1]
-                lanes = int(lane_src.shape[0])
-                lanes_hist[lanes] += 1
-                entry = per_block[lanes_per_block(lanes, xs.shape[0],
-                                                  xs.shape[1])]
-                entry[0] += 1
-                entry[1] += dt
-            return out
-        return wrapper
 
-    for module, attr, name in stages:
-        setattr(module, attr, timed(getattr(module, attr), name))
-    try:
-        wall = run(km, config, x, 23)["timing"]["run_seconds"]
-    finally:
-        for module, attr, fn in originals:
-            setattr(module, attr, fn)
-    lloyd_lanes = {
-        "steps_by_active_lanes": dict(sorted(lanes_hist.items())),
-        "by_lanes_per_block": {
-            p: {"steps": v[0], "seconds": v[1]}
-            for p, v in sorted(per_block.items())
-        },
-    }
-    return wall, {n: {"calls": calls[n], "seconds": seconds[n]}
-                  for _, _, n in stages}, lloyd_lanes
+def _is_annotation(event, name: str) -> bool:
+    """Whether a kineto event is a user annotation (a host range, or its
+    GPU-side shadow), by the event itself where it says, else by the
+    name of a range of the program or of the benchmark."""
+    says = getattr(event, "is_user_annotation", None)
+    if says is not None:
+        return bool(says())
+    return name.startswith((RANGE_PREFIX, "portbench."))
+
+
+def trace_events(kineto_results) -> List[Event]:
+    """The events of a finished ``torch.profiler`` run
+    (``prof.profiler.kineto_results``).  The device side of a host range
+    (a GPU user annotation) spans the operations it launched and is not
+    an operation itself (``portbench/trace.py``'s ``_kind`` tells one
+    by its name alone, and so knows only the benchmark's own ranges)."""
+    out = []
+    for e in kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            kind = "other" if _is_annotation(e, name) else "device"
+        elif name.startswith(RANGE_PREFIX) and _is_annotation(e, name):
+            kind = "range"
+        elif name.startswith(_LAUNCH_CALLS):
+            kind = "launch"
+        else:
+            kind = "other"
+        start = int(e.start_ns())
+        out.append(Event(name, kind, start, start + int(e.duration_ns()),
+                         int(e.correlation_id())))
+    return out
+
+
+def _innermost(ranges: List[Event], times: List[int]) -> List[Optional[str]]:
+    """The innermost range open at each time (the ranges of one thread
+    nest), None where none is.  The rule of ``portbench/trace.py``'s
+    ``_innermost``, kept alike so that both read a trace alike: at one
+    instant, close before query before open."""
+    marks = []
+    for i, r in enumerate(ranges):
+        marks.append((r.start, 2, i))
+        marks.append((r.end, 0, i))
+    marks += [(t, 1, j) for j, t in enumerate(times)]
+    marks.sort(key=lambda m: (m[0], m[1]))
+    stack: List[int] = []
+    out: List[Optional[str]] = [None] * len(times)
+    for _, what, i in marks:
+        if what == 2:
+            stack.append(i)
+        elif what == 0:
+            if i in stack:
+                stack.remove(i)
+        else:
+            out[i] = ranges[stack[-1]].name if stack else None
+    return out
+
+
+def range_breakdown(events: List[Event]) -> Dict[str, Dict[str, float]]:
+    """Each ``cc.*`` range's ``calls``, ``host_s`` (summed over its
+    calls), ``self_host_s`` (less the ranges directly inside it),
+    ``device_s`` and ``kernels`` of the device operations launched with
+    it innermost, and ``idle_s`` of the device's gaps that began in it;
+    the entry ``NO_RANGE`` holds what no range launched or began.  The
+    window is from the first range's start to the last one's end."""
+    ranges = sorted((e for e in events if e.kind == "range"),
+                    key=lambda e: (e.start, -e.end))
+    out: Dict = collections.defaultdict(lambda: dict.fromkeys(
+        ("calls", "host_s", "self_host_s", "device_s", "kernels",
+         "idle_s"), 0))
+    if not ranges:
+        return {}
+    w0, w1 = ranges[0].start, max(r.end for r in ranges)
+    stack: List[Event] = []
+    for r in ranges:
+        while stack and stack[-1].end <= r.start:
+            stack.pop()
+        entry = out[r.name]
+        entry["calls"] += 1
+        entry["host_s"] += (r.end - r.start) * 1e-9
+        entry["self_host_s"] += (r.end - r.start) * 1e-9
+        if stack:
+            out[stack[-1].name]["self_host_s"] -= (r.end - r.start) * 1e-9
+        stack.append(r)
+    launches = [e for e in events if e.kind == "launch"]
+    owner = dict(zip((e.corr for e in launches),
+                     _innermost(ranges, [e.start for e in launches])))
+    device = sorted((e for e in events if e.kind == "device"
+                     and e.end > w0 and e.start < w1),
+                    key=lambda e: e.start)
+    for e in device:
+        entry = out[owner.get(e.corr) or NO_RANGE]
+        entry["device_s"] += (e.end - e.start) * 1e-9
+        if not e.name.startswith(("Memcpy", "Memset")):
+            entry["kernels"] += 1
+    gaps, cursor = [], w0
+    for e in device:
+        if e.start > cursor:
+            gaps.append((cursor, e.start))
+        cursor = max(cursor, e.end)
+    if cursor < w1:
+        gaps.append((cursor, w1))
+    for (a, b), name in zip(gaps, _innermost(ranges, [a for a, _ in gaps])):
+        out[name or NO_RANGE]["idle_s"] += (b - a) * 1e-9
+    return dict(out)
 
 
 class _DeferredRing(StreamCheckpointer):
@@ -324,16 +357,16 @@ def _estimate_run(km, config, x, seed):
     refined = dataclasses.replace(
         config, n_iterations=out["streaming"]["h_effective"])
     if 8 in config.k_values:
-        exact_curves_for_k(km, refined, x, seed, 8)
+        lloyd = exact_curves_for_k(km, refined, x, seed, 8)["timing"]["lloyd"]
+        out["timing"]["lloyd"] = {name: n + lloyd[name] for name, n
+                                  in out["timing"]["lloyd"].items()}
     torch.cuda.synchronize()
     out["timing"]["run_seconds"] += time.perf_counter() - t0
     return out
 
 
 def _estimate(km, args, smi):
-    """``--estimate``: parts 1-3 for the estimator (module docstring)."""
-    from consensus_clustering_tpu_torch.estimator import engine, tiled
-
+    """``--estimate``: parts 1-2 for the estimator (module docstring)."""
     ks = tuple(int(k) for k in args.ks.split(","))
     n = ESTIMATE_N
     x, _ = make_blobs(n_samples=n, n_features=50, centers=8,
@@ -343,31 +376,18 @@ def _estimate(km, args, smi):
         n_samples=n, n_features=50, k_values=ks, n_iterations=args.h,
         store_matrices=False, chunk_size=4, cluster_batch=16,
         stream_h_block=100, accum_repr="packed")
-    stages = (
-        (engine, "resample_indices", "plan"),
-        (engine.PairConsensusEngine, "_iij_increment", "iij at the pairs"),
-        (sweep, "fit_resample_lanes", "cluster"),
-        *_CLUSTER_STAGES,
-        (engine.PairConsensusEngine, "_mij_increment", "mij at the pairs"),
-        (engine, "masked_histogram_counts", "pair histogram"),
-        (tiled, "collect_resample_labels", "refine/collect labels"),
-        (tiled, "packed_hist_counts", "refine/tiles (B3, B1)"),
-    )
     _estimate_run(km, dataclasses.replace(config, k_values=(2, 8),
                                           n_iterations=16), x, 23)  # warm
     out, busy = _sampled(lambda: _estimate_run(km, config, x, 23))
     plain = out["timing"]
-    timed_wall, stage_s, lloyd_lanes = _timed_stages(km, config, x,
-                                                     _estimate_run, stages)
     print(json.dumps({
-        "profile": "estimate stages (N=100,000, packed pairs, refine K=8)",
+        "profile": "estimate (N=100,000, packed pairs, refine K=8)",
         "k_values": list(ks), "h": args.h, "n_pairs": 2**17,
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "run_seconds": plain["run_seconds"], "nvml_busy_share": busy,
         "peak_device_bytes": plain["device_memory"].get("peak_bytes_in_use"),
         "launches": plain["kernel_launches"],
-        "timed_run_seconds": timed_wall, "stage_seconds": stage_s,
-        "lloyd_lanes": lloyd_lanes,
+        "lloyd_lanes": _lloyd_lanes(plain["lloyd"]),
     }, default=float), flush=True)
     _profile_one_k(km, dataclasses.replace(config, k_values=(args.profile_k,)),
                    x, _estimate_run, "estimate", smi, args)
@@ -397,12 +417,12 @@ def _append(km, args, smi):
         app.bootstrap_generation(x[:a["n_old"]], config=config, clusterer=km,
                                  seed=23, store=PlaneStore(parent))
 
-        def run(km_, _config, _x, _seed):
+        def run():
             target = tempfile.mkdtemp(dir=tmp)
             shutil.rmtree(target)
             shutil.copytree(parent, target)
             out = app.run_append(PlaneStore(target), x, h_new=a["h_new"],
-                                 clusterer=km_, stream_h_block=a["block"])
+                                 clusterer=km, stream_h_block=a["block"])
             # The whole append is the timed run; the new lanes' stream is a
             # part of it.
             out["timing"] = dict(
@@ -410,66 +430,76 @@ def _append(km, args, smi):
                 run_seconds=out["append"]["run_seconds"])
             return out
 
-        run(km, None, None, None)  # warm
-        out, busy = _sampled(lambda: run(km, None, None, None))
-        stages = (
-            (PlaneStore, "load_latest", "store load + verify"),
-            (app, "_stream", "new lanes (packed stream)"),
-            *_STAGES["stream"],
-            (app, "staleness_report", "staleness (B3, B1)"),
-            (app, "merge_generations", "merge (host numpy)"),
-            (app, "iij_accounting_holds", "Iij accounting (B3)"),
-            (app, "curves_for_planes", "merged curves (B3, B1)"),
-            (PlaneStore, "write_generation", "store write"),
-        )
-        timed_wall, stage_s, _ = _timed_stages(km, None, None, run, stages)
-    print(json.dumps({
-        "profile": "append stages (packed, fused)", "append": a,
-        "k_values": list(config.k_values),
-        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "run_seconds": out["append"]["run_seconds"],
-        "stream_run_seconds": out["timing"]["stream_run_seconds"],
-        "nvml_busy_share": busy, "launches": out["timing"]["kernel_launches"],
-        "timed_run_seconds": timed_wall, "stage_seconds": stage_s,
-    }, default=float), flush=True)
+        run()  # warm
+        out, busy = _sampled(run)
+        print(json.dumps({
+            "profile": "append (packed, fused)", "append": a,
+            "k_values": list(config.k_values),
+            "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+            "run_seconds": out["append"]["run_seconds"],
+            "stream_run_seconds": out["timing"]["stream_run_seconds"],
+            "nvml_busy_share": busy,
+            "launches": out["timing"]["kernel_launches"],
+            "lloyd_lanes": _lloyd_lanes(out["timing"]["lloyd"]),
+        }, default=float), flush=True)
+        _profile_run(run, out["append"]["run_seconds"],
+                     {"profile": "append under torch.profiler"}, smi)
     return 0
 
 
+def _lloyd_lanes(lloyd: Dict[str, int]) -> Dict[str, float]:
+    """A run's Lloyd loop counts, and the share of each step's lanes
+    still running."""
+    return dict(lloyd, occupancy=lloyd["lane_steps"]
+                / max(lloyd["lane_slots"], 1))
+
+
 def _profile_one_k(km, one_k, x, run, engine, smi, args):
-    """Part 3 (module docstring): one K plain, then under torch.profiler:
-    device time by kernel class and the device idle share."""
-    one_k_plain = run(km, one_k, x, 23)["timing"]["run_seconds"]
+    """Part 2 (module docstring): one K plain, then under torch.profiler."""
+    plain = run(km, one_k, x, 23)["timing"]["run_seconds"]
+    _profile_run(lambda: run(km, one_k, x, 23), plain, {
+        "profile": f"one K under torch.profiler ({engine})", "h": args.h,
+        "stream_h_block": args.stream, "profile_k": args.profile_k}, smi)
+
+
+def _profile_run(run, plain_seconds, line, smi):
+    """``run()`` under torch.profiler: device time by kernel class, the
+    device idle share against ``plain_seconds`` (the same run
+    unprofiled) and :func:`range_breakdown`; prints one JSON line."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        run(km, one_k, x, 23)
-    kernels = [e for e in prof.key_averages() if _self_device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+    with recording_ranges(), \
+            torch.profiler.profile(activities=activities) as prof:
+        run()
+    events = trace_events(prof.profiler.kineto_results)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.kind == "device":
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += (e.end - e.start) * 1e-9
     by_class = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        entry = by_class[_kernel_class(e.key)]
-        entry[0] += e.count
-        entry[1] += _self_device_us(e) / 1e6
+    for name, (calls, seconds) in by_name.items():
+        entry = by_class[_kernel_class(name)]
+        entry[0] += calls
+        entry[1] += seconds
     busy_s = sum(v[1] for v in by_class.values())
+    ranges = range_breakdown(events)
     print(json.dumps({
-        "profile": f"one K under torch.profiler ({engine})", "h": args.h,
-        "stream_h_block": args.stream,
-        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "profile_k": args.profile_k,
-        "profile_k_run_seconds": one_k_plain,
-        "profile_k_device_busy_seconds": busy_s,
-        "profile_k_device_idle_share": 1.0 - busy_s / one_k_plain,
+        **line, "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "run_seconds": plain_seconds, "device_busy_seconds": busy_s,
+        "device_idle_share": 1.0 - busy_s / plain_seconds,
         "device_seconds_by_kernel_class": {
             k: {"launches": v[0], "seconds": v[1]}
             for k, v in sorted(by_class.items(), key=lambda kv: -kv[1][1])
         },
         "top_kernels": [
-            {"name": e.key[:80], "calls": e.count,
-             "device_s": _self_device_us(e) / 1e6}
-            for e in sorted(kernels, key=lambda e: -_self_device_us(e))
-            [:8]
+            {"name": name[:80], "calls": v[0], "device_s": v[1]}
+            for name, v in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:8]
         ],
-    }, default=float))
+        "ranges": dict(sorted(ranges.items(),
+                              key=lambda kv: -kv[1]["host_s"])),
+    }, default=float), flush=True)
 
 
 def _smi() -> str:
@@ -529,18 +559,14 @@ def main(argv=None):
     smi = _smi()
     print(smi, flush=True)
     plain = run(km, config, x, 23)["timing"]
-    timed_wall, stages, lloyd_lanes = _timed_stages(km, config, x, run,
-                                                    _STAGES[engine])
     print(json.dumps({
-        "profile": f"headline stages ({engine})", "k_values": list(ks),
+        "profile": f"headline ({engine})", "k_values": list(ks),
         "h": args.h, "stream_h_block": args.stream,
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "run_seconds": plain["run_seconds"],
         "resamples_per_second": plain["resamples_per_second"],
         "launches": plain["kernel_launches"],
-        "timed_run_seconds": timed_wall,
-        "stage_seconds": stages,
-        "lloyd_lanes": lloyd_lanes,
+        "lloyd_lanes": _lloyd_lanes(plain["lloyd"]),
     }, default=float), flush=True)
 
     _profile_one_k(km, dataclasses.replace(config, k_values=(args.profile_k,)),

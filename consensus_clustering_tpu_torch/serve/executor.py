@@ -55,7 +55,10 @@ from consensus_clustering_tpu_torch.obs.memory import (
     attributable_peak_delta,
     judge_measurement,
 )
-from consensus_clustering_tpu_torch.obs.tracing import Tracer
+from consensus_clustering_tpu_torch.obs.tracing import (
+    Tracer,
+    recording_ranges,
+)
 from consensus_clustering_tpu_torch.utils.checkpoint import backend_tag
 from consensus_clustering_tpu_torch.utils.metrics import (
     device_memory_stats,
@@ -763,8 +766,9 @@ class SweepExecutor:
 
     def _profile(self, profile_dir: Optional[str]):
         """A ``torch.profiler`` context that writes its chrome trace
-        under ``profile_dir`` on exit (CUDA activity on the card), or a
-        null context."""
+        under ``profile_dir`` on exit (CUDA activity on the card, and the
+        ``cc.*`` ranges of :func:`..obs.tracing.region`), or a null
+        context."""
         if profile_dir is None:
             return contextlib.nullcontext()
         import os
@@ -780,7 +784,13 @@ class SweepExecutor:
             prof.export_chrome_trace(os.path.join(
                 profile_dir, f"trace-{int(time.time() * 1000)}.json"))
 
-        return profile(activities=activities, on_trace_ready=on_ready)
+        @contextlib.contextmanager
+        def profiled():
+            with recording_ranges(), profile(activities=activities,
+                                             on_trace_ready=on_ready):
+                yield
+
+        return profiled()
 
     # -- executable cache ------------------------------------------------
 
@@ -1039,7 +1049,9 @@ class SweepExecutor:
         ``tracer`` (an :class:`~consensus_clustering_tpu_torch.obs.tracing.
         Tracer` the scheduler binds to its event log, trace_id=job_id)
         makes the execution emit timed spans — ``compile`` (the engine
-        build), ``execute`` and ``checkpoint_write``.  Spans from an
+        build), ``execute`` and ``checkpoint_write``, and under
+        ``execute`` the engine's ``resume_restore``, ``h_block``,
+        ``host_evaluate`` and ``integrity_check``.  Spans from an
         abandoned (timed-out/wedged) attempt are generation-guarded like
         every other late emission.  ``profile_dir`` wraps THIS execution
         in a ``torch.profiler`` trace written under it.
@@ -1238,10 +1250,12 @@ class SweepExecutor:
                 block_cb(block, h_done, pac_list)
 
         execute_span = None
+        stream_tracer = None
         if span_tracer is not None:
             execute_span = span_tracer.span(
                 "execute", h_requested=int(spec.n_iterations),
             )
+            stream_tracer = span_tracer.child(execute_span.span_id)
         profile_ctx = self._profile(profile_dir)
         # Arm the plane-store capture for packed EXACT runs only: the
         # captured bit-planes ARE the sufficient statistic the append
@@ -1281,6 +1295,7 @@ class SweepExecutor:
                         adaptive_min_h=spec.adaptive_min_h,
                         checkpointer=checkpointer,
                         integrity_check_every=self.integrity_check_every,
+                        tracer=stream_tracer,
                         **capture_kwargs,
                     )
                 # engine.run synchronises the device before it returns.

@@ -6,10 +6,13 @@ from the job store, ``/healthz``, ``/metrics`` and ``/metrics.prom``,
 400/404/413.  The port executor's PAC equals the port library's fit bit
 for bit; against the reference ``SweepExecutor`` the same job has equal
 ``K`` and ``h_effective`` and PAC within the parity band
-max(0.02, 0.25·ref).  The copied modules equal their reference's text
-once the package is renamed.
+max(0.02, 0.25·ref).  A job's engine spans sit under its ``execute``
+span in the event log, and a ``profile_dir`` trace carries the ``cc.*``
+ranges.  The copied modules equal their reference's text once the package
+is renamed (``obs/tracing.py``: followed by its port-only section).
 """
 
+import collections
 import json
 import os
 import re
@@ -50,6 +53,9 @@ VERBATIM = (
     "serve/fleet/steal.py", "serve/jobstore.py", "serve/service.py",
     "obs/query.py",
 )
+#: Copied modules the port extends: the reference's text, then a section
+#: of the port's own that opens with this line.
+EXTENDED = {"obs/tracing.py": "\n\n\n# -- Port only: "}
 
 
 def _req(base, path, body=None):
@@ -219,6 +225,38 @@ def test_profile_dir_writes_a_torch_profiler_trace(tmp_path):  # jaxlint: disabl
     assert result["K"] == [2, 3]
     traces = os.listdir(tmp_path / "prof")
     assert len(traces) == 1 and traces[0].endswith(".json")
+    with open(tmp_path / "prof" / traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"cc.engine", "cc.engine.block", "cc.kmeans.lloyd"} <= names
+
+
+def test_stream_spans_under_execute_in_the_event_log(tmp_path):
+    svc = ConsensusService(
+        store_dir=str(tmp_path / "store"), port=0,
+        executor=SweepExecutor(device="cpu", integrity_check_every=1),
+        events_path=str(tmp_path / "ev.jsonl")).start()
+    try:
+        base = f"http://127.0.0.1:{svc.port}"
+        code, rec = _req(base, "/jobs", _body(seed=41))
+        assert code == 202
+        assert _poll(base, rec["job_id"])["status"] == "done"
+    finally:
+        svc.stop()
+    with open(tmp_path / "ev.jsonl") as f:
+        spans = [e for e in map(json.loads, f) if e["event"] == "span"
+                 and e.get("trace_id") == rec["job_id"]]
+    by_id = {e["span_id"]: e for e in spans}
+    execute = [e for e in spans if e["name"] == "execute"]
+    assert len(execute) == 1
+    under = collections.Counter(
+        e["name"] for e in spans
+        if e["parent_span_id"] == execute[0]["span_id"])
+    # H=10 in blocks of 16: one block.
+    assert under == {"h_block": 1, "host_evaluate": 1, "integrity_check": 1}
+    for e in spans:
+        if e["name"] in under:
+            assert by_id[e["parent_span_id"]]["name"] == "execute"
+            assert e["block"] == 0 and e["status"] == "ok"
 
 
 def test_executor_equals_the_port_library_fit():  # jaxlint: disable=JL018 -- the port's own library fit at n=60, H=10 is the oracle
@@ -280,4 +318,8 @@ def test_copied_module_equals_its_reference(rel):
     assert header == f"# Copied from consensus_clustering_tpu/{rel}."
     ref = re.sub(r"\bconsensus_clustering_tpu\b",
                  "consensus_clustering_tpu_torch", ref)
+    if rel in EXTENDED:
+        port, marker, _ = port.partition(EXTENDED[rel])
+        assert marker, f"{rel} has no port-only section"
+        port += "\n"
     assert port == re.sub(r"PR \d+'s ", "", ref)
