@@ -6,7 +6,7 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
 
 1. env          — the card's name and power limit (nvidia-smi), torch/CUDA
                   versions, matplotlib's (null when it does not
-                  import), and the seconds to build the four kernel
+                  import), and the seconds to build the five kernel
                   sources from csrc/ (one nvcc per source, started
                   together);
 2. kernels      — each kernel against its plain PyTorch version on the
@@ -19,7 +19,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   B2 and the final assignment bit for bit against the
                   plain versions that repeat their arithmetic, on raw
                   data, also at a wide, a slot-chunked, a shuffled-lanes
-                  and a scalar-layout case.  Every kernel's ``ms`` is
+                  and a scalar-layout case; the k-means++ draws and
+                  prologue bit for bit at the benchmark's seeding step
+                  shapes.  Every kernel's ``ms`` is
                   its device time over CUDA-graph replays of its wrapper
                   (the wrapper's host work, tens of microseconds, not
                   timed), ``eager_ms`` that of back-to-back calls;
@@ -153,7 +155,7 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, each printing JSON lines:
                   buckets disclosing the records' tiers, PAC equal to the
                   fit with the value pinned by hand; ``serve`` with that
                   store answering the run's job (PAC equal to the run's,
-                  then from the store) and a second job (seed 24, H=500),
+                  then from the store) and a second job (seed 24, H=2000),
                   ``serve-admin`` ``show`` (footprints, while the second
                   job is queued or running),
                   ``list``, ``trace``, ``report`` and ``bundle`` (the job
@@ -244,6 +246,13 @@ KERNEL_NAMES = ("hist", "lloyd", "popcount", "fused_block", "assign")
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 POPC_PER_S = 16 * 132 * 1.98e9
+# 32-bit integer add, shift, funnel shift and logic: 64 results per clock
+# per SM on compute capability 9.0 (the same table).
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 instructions of one k-means++ draw: threefry2x32's 72 (two initial
+# adds, 20 rounds of add, funnel shift and xor, 5 two-add key injections),
+# the counter's add, and the uniform's xor, shift and or.
+KMEANSPP_HASH_OPS = 76
 
 HEADLINE = dict(K_range=range(2, 21), n_iterations=500, random_state=23,
                 store_matrices=False, chunk_size=4, cluster_batch=16)
@@ -488,6 +497,7 @@ def phase_kernels(torch, results):
     kernels_popcount(torch, results)
     kernels_fused(torch, results)
     kernels_estimate_shapes(torch, results)
+    kernels_kmeanspp(torch, results)
 
 
 def kernels_hist(torch, results):
@@ -1075,6 +1085,83 @@ def kernels_fused(torch, results):
                           "assignment packed into bit-planes"})
 
 
+def kernels_kmeanspp(torch, results):
+    """The k-means++ draws and prologue (``ops/kmeanspp``) bit for bit
+    against their plain versions at the benchmark's seeding step shapes:
+    16 resamples x 3 restarts (``cluster_batch=16``, ``n_init=3``) of
+    80,000 rows (``est100k``: 0.8 of N=100,000) and of 16,000 rows
+    (``blobs20k``), T = 5 trials (2 + ceil(ln k_max), k_max 20 and 10),
+    D^2 to each lane's first centre on the 8-blob data, steps 1, 2 and 19.
+    Timing of a step's draw at both shapes beside its bound (integer
+    operations: draws x KMEANSPP_HASH_OPS at the int32 rate; D^2 bytes)
+    and the plain version's time."""
+    from consensus_clustering_tpu_torch import rng
+    from consensus_clustering_tpu_torch.data import make_blobs
+    from consensus_clustering_tpu_torch.ops import kmeanspp
+    from consensus_clustering_tpu_torch.ops.resample import resample_indices
+
+    timings = {}
+    for name, n_all, rows in (("est100k", 100_000, 80_000),
+                              ("blobs20k", 20_000, 16_000)):
+        bsz, restarts, trials = 16, 3, 5
+        x_np, _ = make_blobs(n_samples=n_all, n_features=50, centers=8,
+                             cluster_std=3.0, random_state=0)
+        x_all = torch.tensor(x_np, dtype=torch.float32, device="cuda")
+        xs = x_all[resample_indices(rng.prng_key(23, "cuda"), n_all, bsz,
+                                    rows)]
+        keys = rng.split(rng.split(rng.prng_key(23, "cuda"), bsz), restarts)
+        key_rest, first = kmeanspp.seed_keys_kernel(keys, rows)
+        key_rest_p, first_p = kmeanspp.seed_keys_plain(keys, rows)
+        pro_ok = bool(torch.equal(key_rest, key_rest_p)
+                      and torch.equal(first, first_p))
+        check(pro_ok, f"kmeanspp prologue != split + randint ({name})")
+        x_first = xs[torch.arange(bsz, device="cuda")[:, None], first]
+        d2 = ((xs[:, None] - x_first[:, :, None]) ** 2).sum(-1)
+        same = []
+        for j in (1, 2, 19):
+            got = kmeanspp.draw_candidates_kernel(key_rest, j, d2, trials)
+            ref = kmeanspp.draw_candidates_plain(key_rest, j, d2, trials)
+            same.append(bool(torch.equal(got, ref)))
+        torch.cuda.synchronize()
+        check(all(same), f"kmeanspp draw != plain ({name}): steps 1, 2, 19 "
+                         f"equal {same}")
+
+        def draw():
+            return kmeanspp.draw_candidates_kernel(key_rest, 1, d2, trials)
+
+        lanes = bsz * restarts
+        b_ms, b_by = bound_ms(4 * lanes * rows + 8 * lanes * trials,
+                              lanes * rows * trials * KMEANSPP_HASH_OPS,
+                              INT32_OPS_PER_S)
+        timing = {
+            "shape": [lanes, rows, trials], "ms": device_ms(torch, draw, 50),
+            "eager_ms": cuda_ms(torch, draw, 50),
+            "plain_ms": cuda_ms(torch, lambda: kmeanspp.draw_candidates_plain(
+                key_rest, 1, d2, trials), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "prologue_ms": device_ms(
+                torch, lambda: kmeanspp.seed_keys_kernel(keys, rows), 50),
+            "prologue_plain_ms": cuda_ms(
+                torch, lambda: kmeanspp.seed_keys_plain(keys, rows), 5)}
+        timings[name] = timing
+        emit({"phase": "kernels", "kernel": "kmeanspp", "case": name,
+              "prologue_equal_plain": pro_ok,
+              "draws_equal_plain": same, **timing})
+    results["kmeanspp"] = {
+        "name": "kmeanspp", "route": "cuda",
+        "source": "consensus_clustering_tpu_torch/csrc/kmeanspp.cu",
+        "replaces": "no Pallas kernel: consensus_clustering_tpu/models/"
+                    "kmeans.py:55 (its fori_loop, compiled by XLA)",
+        "launches": None, "max_abs_err": 0.0,
+        "ms": timings["est100k"]["ms"],
+        "plain_ms": timings["est100k"]["plain_ms"],
+        "bound_ms": timings["est100k"]["bound_ms"],
+        "bound_by": timings["est100k"]["bound_by"], "library_ms": None,
+        "shape": timings["est100k"]["shape"], "redesigned": False,
+        "eager_ms": timings["est100k"]["eager_ms"], "shapes": timings,
+    }
+
+
 # -- phases 3 and 4 -----------------------------------------------------
 
 
@@ -1099,6 +1186,7 @@ def _drive(torch, phase, results, pin=None, **kwargs):
     equal ``PINNED_LAUNCHES[pin or phase]``."""
     from consensus_clustering_tpu_torch import ConsensusClustering
     from consensus_clustering_tpu_torch.ops import (
+        kmeanspp,
         launch_counts,
         reset_launch_counts,
     )
@@ -1106,10 +1194,14 @@ def _drive(torch, phase, results, pin=None, **kwargs):
     x = headline_data()
     cc = ConsensusClustering(**HEADLINE, **kwargs, plot_cdf=False)
     reset_launch_counts()
+    kmeanspp.launch_count = 0
     t0 = time.perf_counter()
     cc.fit(x)
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    if "kmeanspp" in results:
+        results["kmeanspp"].setdefault("launches_by_phase", {})[phase] = (
+            kmeanspp.launch_count)
     ks = list(HEADLINE["K_range"])
     pac = np.array([cc.cdf_at_K_data[k]["pac_area"] for k in ks])
     m = cc.metrics_
@@ -1121,7 +1213,8 @@ def _drive(torch, phase, results, pin=None, **kwargs):
           "wall_seconds": wall, "run_seconds": m["run_seconds"],
           "resamples_per_second": m["resamples_per_second"],
           "peak_device_bytes": m["device_memory"]["peak_bytes_in_use"],
-          "launches": launches, "strategy": m.get("timing", {}),
+          "launches": launches, "kmeanspp_launches": kmeanspp.launch_count,
+          "strategy": m.get("timing", {}),
           "pac": pac.tolist(), "best_k": cc.best_k_})
     check(m["kernel_launches"] == launches,
           f"{phase}: metrics_ launch counts differ")
@@ -2923,11 +3016,13 @@ def _cli_serve_steps(tmp, cal, run_result, report):
         body = {"data": _cli_data().tolist(),
                 "config": {**config, "seed": 23}}
         second = {"data": body["data"], "config": {
-            **config, "seed": 24, "iterations": 5 * CLI["h"]}}
+            **config, "seed": 24, "iterations": 20 * CLI["h"]}}
         code_a, rec_a, post_a = _http(base, "/jobs", body)
         code_b, rec_b, post_b = _http(base, "/jobs", second)
-        # B (H=500) runs behind A, its payload on disk until it is done:
-        # show prices it (a finished job's payload is gone).
+        # B (H=2000) runs behind A, its payload on disk until it is done:
+        # show prices it (a finished job's payload is gone).  Its ~30 s on
+        # an H100 outlast show's process start (7-13 s there); at H=500 B
+        # was done before show read it.
         code, out, err, wall = _cli(["serve-admin", "--store-dir", store,
                                      "show", rec_b["job_id"]], 120)
         shown = json.loads(out) if code == 0 else {}
@@ -3716,7 +3811,8 @@ def main(argv=None):
     if FAILURES:
         print("chip_smoke FAILED: " + "; ".join(FAILURES), file=sys.stderr)
         return 1
-    emit({"kernels": [results[k] for k in KERNEL_NAMES if k in results]})
+    emit({"kernels": [results[k] for k in (*KERNEL_NAMES, "kmeanspp")
+                      if k in results]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ resample, and each resample runs ``n_init`` restarts, so a call carries
 B * n_init lanes.
 
 - k-means++ draws 2 + ceil(ln k_max) candidates per step from the
-  Gumbel-max of log D^2 and keeps the one with the least pooled potential;
+  Gumbel-max of log D^2 (:func:`..ops.kmeanspp.draw_candidates`: one CUDA
+  kernel a step on the card, the ``rng`` composition on the CPU) and keeps
+  the one with the least pooled potential;
   steps run for j < k only (a traced trip count in the reference), and
   slots >= k keep the duplicate of slot 0.
 - Lloyd stops a lane when its squared centre shift falls to
@@ -44,6 +46,10 @@ import torch
 from consensus_clustering_tpu_torch import rng
 from consensus_clustering_tpu_torch.obs.tracing import region
 from consensus_clustering_tpu_torch.ops.fused_block import assign_labels
+from consensus_clustering_tpu_torch.ops.kmeanspp import (
+    draw_candidates,
+    seed_keys,
+)
 from consensus_clustering_tpu_torch.ops.lloyd import lloyd_step
 
 #: The Lloyd loop's counts since the process started (:func:`lloyd_counts`).
@@ -93,9 +99,7 @@ def _kmeanspp_init(
     bsz, restarts = keys.shape[:2]
     n, d = x.shape[1:]
     n_trials = 2 + int(math.ceil(math.log(max(k_max, 2))))
-    pair = rng.split(keys)
-    key0, key_rest = pair[..., 0, :], pair[..., 1, :]
-    first = rng.randint(key0, (), 0, n).long()  # (B, R)
+    key_rest, first = seed_keys(keys, n)  # (B, R, 2), (B, R)
     x_first = _gather_rows(x, first)  # (B, R, d)
     centroids = x_first[:, :, None, :].expand(bsz, restarts, k_max, d).clone()
     d2 = torch.stack(
@@ -103,13 +107,8 @@ def _kmeanspp_init(
         dim=1,
     )  # (B, R, n)
     x_sq = (x * x).sum(-1)  # (B, n)
-    neg_inf = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
     for j in range(1, min(k, k_max)):
-        kj = rng.fold_in(key_rest, j)
-        logits = torch.where(
-            d2 > 0, torch.log(torch.clamp(d2, min=1e-30)), neg_inf
-        )
-        cand_idx = rng.categorical(kj, logits, n_trials)  # (B, R, T)
+        cand_idx = draw_candidates(key_rest, j, d2, n_trials)  # (B, R, T)
         cand = _gather_rows(x, cand_idx)  # (B, R, T, d)
         cross = torch.matmul(
             cand.reshape(bsz, restarts * n_trials, d), x.transpose(1, 2)

@@ -1,7 +1,9 @@
 """Tensor operations of the sweep: resampling, exact counts, bit-planes,
 analysis, and the hand-written CUDA kernels: the histogram (:mod:`.hist`),
-the Lloyd step (:mod:`.lloyd`), the popcount counts (:mod:`.popcount`) and
-the final assignment, alone and fused with packing (:mod:`.fused_block`).
+the Lloyd step (:mod:`.lloyd`), the popcount counts (:mod:`.popcount`),
+the final assignment, alone and fused with packing (:mod:`.fused_block`),
+and the k-means++ candidate draws (:mod:`.kmeanspp`, whose launch count is
+its module's own and not among :func:`launch_counts`).
 """
 
 from typing import Dict

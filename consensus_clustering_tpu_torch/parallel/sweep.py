@@ -69,7 +69,7 @@ from consensus_clustering_tpu_torch.utils.metrics import (
 logger = logging.getLogger(__name__)
 
 #: The CUDA sources every sweep builds before it runs on the card.
-KERNELS = ("hist", "lloyd", "popcount", "fused_block")
+KERNELS = ("hist", "lloyd", "popcount", "fused_block", "kmeanspp")
 
 
 def build_kernels(device: torch.device) -> float:

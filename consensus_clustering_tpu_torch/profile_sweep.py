@@ -87,7 +87,7 @@ APPEND = dict(n_old=4000, h_old=400, n_new=5000, h_new=100, block=100)
 
 _KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
                     "fused_planes_kernel", "fused_merge_kernel",
-                    "assign_kernel")
+                    "assign_kernel", "kmeanspp_")
 
 
 def _kernel_class(name: str) -> str:

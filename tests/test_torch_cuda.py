@@ -14,7 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from consensus_clustering_tpu_torch.ops import fused_block, hist, lloyd, popcount
+from consensus_clustering_tpu_torch import rng
+from consensus_clustering_tpu_torch.ops import (
+    _build,
+    fused_block,
+    hist,
+    kmeanspp,
+    lloyd,
+    popcount,
+)
 from consensus_clustering_tpu_torch.ops.analysis import consensus_matrix
 from consensus_clustering_tpu_torch.ops.bitpack import (
     pack_cosample_planes,
@@ -157,11 +165,103 @@ def test_kmeans_fit_equals_pinned_result(cuda):
     keys = torch.tensor([[0, 1], [0, 2]], device=cuda)
     lloyd.launch_count = 0
     fused_block.assign_launch_count = 0
+    kmeanspp.launch_count = 0
     labels, cen = KMeans(n_init=2).fit(keys, torch.stack([x[:150], x[150:]]),
                                        4, 6)
     assert (lloyd.launch_count, fused_block.assign_launch_count) == (6, 1)
+    # One prologue, then one draw a seeding step (j = 1, 2, 3).
+    assert kmeanspp.launch_count == 1 + 3
     assert "".join(map(str, labels.flatten().tolist())) == _PINNED_FIT_LABELS
     assert float(cen.double().sum()) == -42.99229456484318
+
+
+# k-means++ draws at the benchmark's step shapes: est100k's lane batch (16
+# resamples x 3 restarts of 80,000 rows), blobs20k's (16,000 rows), and a
+# ragged n.  T = 5 is 2 + ceil(ln k_max) for k_max 20 and 10.
+_DRAW_SHAPES = [(16, 3, 80_000, 5), (16, 3, 16_000, 5), (3, 2, 1_001, 5)]
+
+
+def _draw_d2(cuda, b, r, n, kind):
+    g = torch.Generator(device=cuda).manual_seed(n + b)
+    d2 = torch.rand((b, r, n), generator=g, device=cuda) * 50
+    if kind == "zeros":  # points that are centres already
+        d2[torch.rand((b, r, n), generator=g, device=cuda) < 0.3] = 0.0
+    elif kind == "zero_lane":  # every logit -inf: index 0
+        d2[1, 0] = 0.0
+    elif kind == "tiny":  # below the 1e-30 clamp, and denormals
+        d2[..., ::3] = 1e-33
+        d2[..., 1::5] = 1e-44
+    elif kind == "huge":  # near float32's max
+        d2[..., ::4] = 3.4e38
+    return d2
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zeros", "zero_lane", "tiny",
+                                  "huge"])
+@pytest.mark.parametrize("b,r,n,trials", _DRAW_SHAPES)
+def test_kmeanspp_draw_kernel_equals_plain(cuda, b, r, n, trials, kind):
+    d2 = _draw_d2(cuda, b, r, n, kind)
+    keys = rng.split(rng.split(rng.prng_key(n, cuda), b), r)
+    key_rest, _ = kmeanspp.seed_keys_plain(keys, n)
+    for j in (1, 2, 19):
+        got = kmeanspp.draw_candidates_kernel(key_rest, j, d2, trials)
+        ref = kmeanspp.draw_candidates_plain(key_rest, j, d2, trials)
+        assert torch.equal(got, ref), j
+    if kind == "zero_lane":
+        assert torch.equal(got[1, 0], torch.zeros_like(got[1, 0]))
+
+
+@pytest.mark.parametrize("lanes,n", [(48, 80_000), (1, 1), (1000, 16_000),
+                                     (7, 2**31 - 1)])
+def test_kmeanspp_prologue_equals_split_and_randint(cuda, lanes, n):
+    keys = rng.split(rng.prng_key(lanes, cuda), lanes).reshape(-1, 1, 2)
+    got = kmeanspp.seed_keys_kernel(keys, n)
+    ref = kmeanspp.seed_keys_plain(keys, n)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+_LOGF_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+__global__ void logf_kernel(const float* x, float* y, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = logf(x[i]);
+}
+extern "C" int cc_logf(const float* x, float* y, long long n, void* s) {
+  logf_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)s>>>(
+      x, y, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_logf_equals_torch_log_on_every_positive_float(cuda, tmp_path):
+    """The draw kernel's ``logf``, built as the port's kernels are, rounds
+    as ``torch.log`` does on the card, over every positive finite float32
+    (bit patterns 1 .. 0x7F7FFFFF): the draws rest on it."""
+    import ctypes
+    import subprocess
+
+    src, lib_path = tmp_path / "logf.cu", tmp_path / "liblogf.so"
+    src.write_text(_LOGF_SOURCE)
+    subprocess.run(_build.nvcc_command(_build.find_nvcc(), str(src),
+                                       str(lib_path)), check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.cc_logf.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                    ctypes.c_void_p]
+    lib.cc_logf.restype = ctypes.c_int
+    chunk, top = 2**27, 0x7F7FFFFF
+    stream = torch.cuda.current_stream().cuda_stream
+    for lo in range(1, top + 1, chunk):
+        bits = torch.arange(lo, min(lo + chunk, top + 1), dtype=torch.int32,
+                            device=cuda)
+        x = bits.view(torch.float32)
+        y = torch.empty_like(x)
+        assert lib.cc_logf(x.data_ptr(), y.data_ptr(), x.numel(),
+                           stream) == 0
+        ref = torch.log(x)
+        same = y.view(torch.int32) == ref.view(torch.int32)
+        assert bool(same.all()), bits[~same][:8].tolist()
 
 
 def test_small_fit_matches_cpu(cuda):  # jaxlint: disable=JL018 -- GPU only; skipped on the CPU

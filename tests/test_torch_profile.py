@@ -29,6 +29,10 @@ from consensus_clustering_tpu_torch.profile_sweep import (
      "hist_kernel"),
     ("fused_merge_kernel(int const*, long long, int, int, int*)",
      "fused_merge_kernel"),
+    ("kmeanspp_draw_kernel(long long const*, unsigned int, float const*, "
+     "int, int, int, unsigned long long*)", "kmeanspp_draw_kernel"),
+    ("kmeanspp_pick_kernel(unsigned long long const*, unsigned long, int, "
+     "int, long long*)", "kmeanspp_pick_kernel"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize64x64x8", "cublas gemm"),
     ("void at::native::vectorized_elementwise_kernel<2, at::native::"
      "CUDAFunctor_add<long>>(int, long)",
