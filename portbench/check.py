@@ -28,12 +28,22 @@ Past the cluster count Lloyd splits a cluster along a path that any change
 of rounding moves in many lanes, so those Ks' curves are judged only
 through the choice of K.  The sweep the check takes is drawn from the seed among the first
 ``check.within`` sweeps of the window (the last one where fewer ran).
+
+Each number is compared where the cell's limits name it, and a limit that
+names a number nothing computes fails the check.  ``centroid_gap`` is
+KMeans's; a configuration with another clusterer gets its lanes from
+``reference/clusterers/<name>.py`` (:func:`lane_clusterer`), whose
+optional ``numbers`` adds numbers of its own, read from what the program's
+clusterer returned (captured where the configuration's ``capture`` says).
+A cell across processes adds ``rank_gap`` (:func:`portbench.harness.
+run_cell`): the largest gap between any rank's curves, PACs and choice of
+K and rank 0's for the checked sweep.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +62,11 @@ def checked_index(seed: int, within: int) -> int:
 
 
 class Capture:
-    """Holds the centres each ``KMeans.fit`` call returns while ``on``, by
-    K in call order; the program's tensors are kept, never copied or read
-    in the window."""
+    """Holds what each call of the wrapped clusterer method returns while
+    ``on``, by K in call order: the second item of a tuple (``KMeans.fit``'s
+    centres), else the whole return (``fit_predict``'s labels).  The
+    method is called as ``(self, keys, x, k, ...)``; the program's tensors
+    are kept, never copied or read in the window."""
 
     def __init__(self):
         self.on = False
@@ -63,53 +75,77 @@ class Capture:
     def wrap(self, fn):
         capture = self
 
-        def fit(self, keys, x, k, k_max=None, init_centroids=None):
-            out = fn(self, keys, x, k, k_max, init_centroids=init_centroids)
+        def fit(self, keys, x, k, *args, **kwargs):
+            out = fn(self, keys, x, k, *args, **kwargs)
             if capture.on:
-                capture.by_k.setdefault(int(k), []).append(out[1])
+                capture.by_k.setdefault(int(k), []).append(
+                    out[1] if isinstance(out, tuple) else out)
             return out
 
         fit.__wrapped__ = fn
         return fit
 
 
+def lane_clusterer(cell: Dict[str, Any]
+                   ) -> Tuple[Callable, Optional[Callable]]:
+    """The reference's lane clusterer of the cell's configuration and its
+    file's ``numbers`` (None for KMeans, and where the file has none)."""
+    name = cell["config"]["clusterer"]["name"]
+    if name == "KMeans":
+        return ref.cluster, None
+    from portbench import harness
+
+    module = harness.reference_module(cell["bench_dir"], "clusterers", name)
+    return module.cluster, getattr(module, "numbers", None)
+
+
 def check_sweep(cell: Dict[str, Any], x: np.ndarray, sweep: Dict[str, Any],
-                centroids: Dict[int, List[torch.Tensor]],
-                device: str) -> Dict[str, Any]:
+                centroids: Dict[int, List[torch.Tensor]], device: str,
+                extra: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
     """``{"correct": bool, "numbers": {name: {"value", "limit"}}}`` of one
-    sweep and the centres captured in it; the numbers are also printed, as
-    the last lines of standard error."""
+    sweep and what its clusterer returned (``centroids``: KMeans's centres,
+    or another clusterer's captured outputs); ``extra`` numbers computed
+    by the caller.  The numbers are also printed, as the last lines of
+    standard error."""
     config, work = cell["config"], cell["workload"]
     limits, mode = work["limits"], work["check"]["mode"]
-    found = {name: 0.0 for name in limits}
+    estimated = mode == "estimate"
+    found = {"cdf_gap": 0.0}
+    if estimated:
+        found["est_cdf_gap"] = 0.0
+    found.update(extra or {})
     notes = []
     if sweep["mode"] != mode:
         notes.append(f"the sweep ran mode {sweep['mode']!r}, the cell "
                      f"states {mode!r}")
-    params = sweep_params(config, mode)
+    params = sweep_params(config, mode, cell["traffic"].get("fit"))
     h = params["h"] = int(sweep["h_effective"])
-    estimated = mode == "estimate"
     ks = sweep["ks"]
     checked = [k for k in ks if k <= int(config["data"]["centers"])]
     refined = sweep.get("refined_k")
     exact_ks = [refined] if estimated and refined in checked else []
+    cluster, numbers_of = lane_clusterer(cell)
     r = reference_sweep(params, x, sweep["random_state"], checked, device,
-                        exact_ks=exact_ks)
-    gaps, by_k = [], {}
+                        exact_ks=exact_ks, cluster=cluster)
+    centres = "centroid_gap" in limits
+    gaps, by_k, lanes_by_k = [], {}, {}
     for k in checked:
-        parts = centroids.get(k, [])
-        rows = sum(int(p.shape[0]) for p in parts)
-        if not rows or rows % h:
-            notes.append(f"K={k}: {rows} captured lanes, not whole sweeps "
-                         f"of {h}")
-            gaps.append(torch.tensor([float("inf")]))
-        else:
-            got = torch.cat([p.to(device) for p in parts])
-            at_k = torch.cat([ref.centroid_gaps(got[p0:p0 + h],
-                                                r["centroids"][k], k).cpu()
-                              for p0 in range(0, rows, h)])
-            gaps.append(at_k)
-            by_k[k] = float(at_k.max())
+        if centres or numbers_of is not None:
+            parts = centroids.get(k, [])
+            rows = sum(int(p.shape[0]) for p in parts)
+            if not rows or rows % h:
+                notes.append(f"K={k}: {rows} captured lanes, not whole "
+                             f"sweeps of {h}")
+                gaps.append(torch.tensor([float("inf")]))
+            else:
+                lanes_by_k[k] = got = torch.cat([p.to(device)
+                                                 for p in parts])
+                if centres:
+                    at_k = torch.cat([ref.centroid_gaps(
+                        got[p0:p0 + h], r["fitted"][k], k).cpu()
+                        for p0 in range(0, rows, h)])
+                    gaps.append(at_k)
+                    by_k[k] = float(at_k.max())
         if estimated:
             if k == refined:
                 est = abs(sweep["pac_estimate_at_refined_k"] - r["pac"][k])
@@ -122,13 +158,21 @@ def check_sweep(cell: Dict[str, Any], x: np.ndarray, sweep: Dict[str, Any],
             found["cdf_gap"] = max(found["cdf_gap"], float(np.abs(
                 sweep["cdf"][k] - r["cdf"][k]).max()))
     lanes = torch.cat(gaps) if gaps else torch.zeros(1)
-    found["centroid_gap"] = float(lanes.double().median())
+    if centres:
+        found["centroid_gap"] = float(lanes.double().median())
+    if numbers_of is not None and len(lanes_by_k) == len(checked):
+        found.update(numbers_of(lanes_by_k, r["fitted"], checked))
     judged = dict(sweep["pac"])
     if estimated:
         judged[refined] = sweep["pac_estimate_at_refined_k"]
     judged.update(r["pac"])
     choice = ref.best_k(ks, [judged[k] for k in ks])
     found["best_k_gap"] = float(abs(sweep["best_k"] - choice))
+    for name in limits:
+        if name not in found:
+            notes.append(f"the limits name {name!r}, which nothing "
+                         f"computed")
+            found[name] = float("inf")
     numbers = {name: {"value": found[name], "limit": limits[name]}
                for name in limits}
     correct = not notes and all(v["value"] <= v["limit"]

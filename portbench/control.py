@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from portbench.check import lane_clusterer
 from portbench.reference.consensus import best_k
 from portbench.reference.sweep import reference_sweep, sweep_params
 
@@ -23,11 +24,14 @@ def control_sweep(cell: Dict[str, Any], x: np.ndarray, random_state: int,
                   device: str) -> Tuple[Dict[str, Any],
                                         Dict[int, List[torch.Tensor]]]:
     """One sweep of the cell by the reference in TF32: the harness's
-    record of it and its centres by K, as the program's are captured."""
+    record of it and what its clusterer returned by K (KMeans's centres),
+    as the program's are captured."""
     t0 = time.perf_counter()
-    params = sweep_params(cell["config"], cell["workload"]["check"]["mode"])
+    params = sweep_params(cell["config"], cell["workload"]["check"]["mode"],
+                          cell["traffic"].get("fit"))
     ks = params["ks"]
-    r = reference_sweep(params, x, random_state, ks, device, "tf32")
+    r = reference_sweep(params, x, random_state, ks, device, "tf32",
+                        cluster=lane_clusterer(cell)[0])
     cdf, pac = dict(r["cdf"]), dict(r["pac"])
     out = {"random_state": random_state, "resamples": params["h"] * len(ks),
            "h_effective": params["h"], "ks": ks, "mode": params["mode"]}
@@ -41,4 +45,4 @@ def control_sweep(cell: Dict[str, Any], x: np.ndarray, random_state: int,
     if device == "cuda":
         torch.cuda.synchronize()
     out["fit_s"] = out["run_seconds"] = time.perf_counter() - t0
-    return out, {k: [c] for k, c in r["centroids"].items()}
+    return out, {k: [c] for k, c in r["fitted"].items() if c is not None}

@@ -1,8 +1,11 @@
 """Faults planted in the timed path underneath a run, each of which the
 check has to refuse: the benchmark's CPU tests drive every cell with each,
 and ``portbench/readings.py --fault <name>`` reads the check's numbers
-with one at a cell's own size.  Each is a context manager that patches
-the program and restores it on exit."""
+with one at a cell's own size (``portbench/run.py --fault <name>`` in
+every rank of a cell across processes).  :data:`FAULTS` are those any
+cell can have, :data:`PROCESS_FAULTS` those of a cell across processes.
+Each is a context manager that patches the program and restores it on
+exit."""
 
 import contextlib
 
@@ -26,7 +29,8 @@ def _state_unchanged():
     def make(fn):
         def apply_update(x, lane_src, centroids, *args):
             return centroids, torch.zeros(centroids.shape[0],
-                                          dtype=centroids.dtype)
+                                          dtype=centroids.dtype,
+                                          device=centroids.device)
         return apply_update
     return _patched(kmeans, "_apply_update", make)
 
@@ -86,3 +90,18 @@ def _answer_altered():
 FAULTS = {"state_unchanged": _state_unchanged,
           "half_left_out": _half_left_out,
           "answer_altered": _answer_altered}
+
+
+def _exchange_left_out():
+    """The sums between processes left out: each process keeps its own
+    partial counts where the mesh would all-reduce them."""
+    from consensus_clustering_tpu_torch.parallel import distributed
+
+    def make(fn):
+        def all_reduce(tensor, ranks):
+            return None
+        return all_reduce
+    return _patched(distributed, "all_reduce", make)
+
+
+PROCESS_FAULTS = {"exchange_left_out": _exchange_left_out}

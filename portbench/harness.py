@@ -10,6 +10,32 @@ the check of its answers compares and the limits.  Per-layer metrics are
 read by ``metrics/<name>.py``.  Adding a cell, a configuration or a metric
 is adding a file.
 
+A configuration names its data generator, its clusterer and, where the
+check reads what the clusterer returns, the program's function to capture
+it from; each is looked up by name, so a configuration with another
+clusterer is these files and no edit:
+
+- ``configs/<config>.json``: ``data.generator`` (``make_blobs``, else
+  ``reference/data/<generator>.py``, whose ``make(data, seed)`` returns
+  the rows), ``clusterer.name`` (``KMeans`` runs the program's default
+  clusterer with ``clusterer_options`` from ``n_init``, ``max_iter`` and
+  ``tol``; any other name is the class of that name in the program's
+  ``models`` package, built from ``clusterer.options`` and passed as
+  ``clusterer=``) and optionally ``clusterer.capture`` (module, owner,
+  attribute; default :data:`portbench.check.CLUSTERER`);
+- ``reference/clusterers/<name>.py`` for a clusterer other than KMeans:
+  ``cluster(x, indices, key_cluster, k, k_max, clusterer, group,
+  precision)`` returns each lane's labels and its parameters (or None),
+  and an optional ``numbers(captured, fitted, ks)`` returns further
+  numbers for the check, each compared where the cell's limits name it;
+- ``traffic/<traffic>.json``, ``workloads/<cell>.json`` (limits without
+  ``centroid_gap`` where the clusterer has no centres), an entry in
+  ``BENCHMARK.json``, and ``metrics/<name>.py`` for any new metric.
+
+A traffic file may say ``processes``, ``backend`` and ``mesh``: the cell
+then runs as that many processes with one device each on a
+(``k_shards``, rest, ``row_shards``) mesh (:mod:`portbench.ranks`).
+
 The window is a closed loop of one analyst: whole sweeps through
 ``ConsensusClustering.fit``, back to back, each with a fresh
 ``random_state`` drawn from the run's seed and the sweep's index, on one
@@ -92,14 +118,28 @@ def load_cell(name: str, root: str = ROOT) -> Dict[str, Any]:
     def applies(metric):
         return name in metric.get("workloads", [name])
 
+    processes = int(traffic.get("processes", 1))
+    if processes > 1 and not {"backend", "mesh"} <= set(traffic):
+        raise CellError(f"traffic {entry['traffic']} spans {processes} "
+                        f"processes but names no backend and mesh")
+
     end_to_end = [m for m in spec["end_to_end"] if applies(m)]
     reported = {m["name"] for m in end_to_end}
     per_layer = [m for m in spec["per_layer"]
                  if applies(m) and m["moves"] in reported]
     return {"name": name, "chips": entry["chips"], "config": config,
             "traffic": traffic, "workload": workload,
+            "processes": processes,
             "end_to_end": end_to_end, "per_layer": per_layer,
+            "bench_dir": bench, "root": root,
             "metrics_dir": os.path.join(bench, "metrics")}
+
+
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def reader(metrics_dir: str, name: str):
@@ -107,11 +147,31 @@ def reader(metrics_dir: str, name: str):
     path = os.path.join(metrics_dir, f"{name}.py")
     if not os.path.isfile(path):
         raise CellError(f"no reader metrics/{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _module(path, f"portbench.metrics.{name}").read
+
+
+def reference_module(bench_dir: str, kind: str, name: str):
+    """``reference/<kind>/<name>.py`` of the benchmark directory: a data
+    generator (``data``) or a lane clusterer (``clusterers``)."""
+    path = os.path.join(bench_dir, "reference", kind, f"{name}.py")
+    if not os.path.isfile(path):
+        raise CellError(f"no reference/{kind}/{name}.py")
+    return _module(path, f"portbench_reference_{kind}_{name}")
+
+
+def device_clusterer(name: str, options: Dict[str, Any]):
+    """The program's device clusterer of class ``name`` (any module of
+    its ``models`` package), built from ``options``."""
+    import pkgutil
+
+    from consensus_clustering_tpu_torch import models
+
+    for info in pkgutil.iter_modules(models.__path__):
+        module = importlib.import_module(f"{models.__name__}.{info.name}")
+        found = getattr(module, name, None)
+        if isinstance(found, type):
+            return found(**options)
+    raise CellError(f"the program's models have no clusterer {name!r}")
 
 
 def fit_kwargs(cell: Dict[str, Any]) -> Dict[str, Any]:
@@ -127,17 +187,29 @@ def fit_kwargs(cell: Dict[str, Any]) -> Dict[str, Any]:
     k_lo, k_hi = kwargs.pop("K_range")
     kwargs["K_range"] = list(range(int(k_lo), int(k_hi) + 1))
     clusterer = cell["config"]["clusterer"]
-    kwargs["clusterer_options"] = {
-        key: clusterer[key] for key in ("n_init", "max_iter", "tol")}
+    if clusterer["name"] == "KMeans":
+        # The program's own default: an explicit KMeans() is a pin that
+        # the program treats apart (its calibrated max_iter).
+        kwargs["clusterer_options"] = {
+            key: clusterer[key] for key in ("n_init", "max_iter", "tol")}
+    else:
+        kwargs["clusterer"] = device_clusterer(clusterer["name"],
+                                               clusterer.get("options", {}))
     kwargs["plot_cdf"] = False
     kwargs["progress"] = False
     return kwargs
 
 
-def make_data(config: Dict[str, Any], seed: int) -> np.ndarray:
+def make_data(config: Dict[str, Any], seed: int,
+              bench_dir: str = BENCH_DIR) -> np.ndarray:
+    """The configuration's rows from the seed, float32: ``make_blobs``,
+    or ``reference/data/<generator>.py``'s ``make(data, seed)``."""
+    data = config["data"]
+    if data["generator"] != "make_blobs":
+        module = reference_module(bench_dir, "data", data["generator"])
+        return np.asarray(module.make(data, seed)).astype(np.float32)
     from portbench.reference.blobs import make_blobs
 
-    data = config["data"]
     x, _ = make_blobs(int(data["n_samples"]), int(data["n_features"]),
                       int(data["centers"]), float(data["cluster_std"]),
                       random_state=seed % 2**32)
@@ -219,8 +291,8 @@ def forbidden_modules() -> List[str]:
 
 def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: Optional[float] = None,
-             precision: str = "float32",
-             warm_up: bool = True) -> Dict[str, Any]:
+             precision: str = "float32", warm_up: bool = True,
+             group=None) -> Optional[Dict[str, Any]]:
     """One run; returns the result line's object (``check`` last).
 
     ``device`` "cpu" runs the program's plain versions (the tests' drive
@@ -228,6 +300,10 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
     TF32 in the program's place (:mod:`portbench.control`), which the
     check must refuse.  ``warm_up`` False skips the set-up fit, for runs
     in a process whose first run made it (:mod:`portbench.readings`).
+    ``group`` (:class:`portbench.ranks.Group`) is this process's place in
+    a cell that spans processes: every rank runs the same sweeps on the
+    group's mesh in lockstep, and rank 0 alone returns the result (the
+    others None).
     """
     import torch
 
@@ -245,7 +321,9 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
     if on_cuda:
         enable_compilation_cache()
     kwargs = fit_kwargs(cell)
-    x = make_data(cell["config"], seed)
+    # One device, or the group's mesh (whose primary is this process's).
+    where = {"device": device} if group is None else {"mesh": group.mesh}
+    x = make_data(cell["config"], seed, cell["bench_dir"])
     # Set-up: one fit at the cell's shapes, with its H, at its least and
     # largest K (every K has the same shapes: the centre slots are the
     # largest K's), so the kernels are built or loaded and the allocator
@@ -254,10 +332,12 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
         ks = kwargs["K_range"]
         ConsensusClustering(**dict(kwargs, K_range=[ks[0], ks[-1]]),
                             random_state=derived_seed(seed, 1),
-                            device=device).fit(x)
+                            **where).fit(x)
     if on_cuda:
         torch.cuda.synchronize()
     gc.collect()
+    if group is not None:
+        group.gather(None)  # every rank set up
     setup_s = time.perf_counter() - t_start
 
     peak = PeakWatch(torch, torch.device(device)) if on_cuda else None
@@ -265,9 +345,11 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
                                            ["within"]))
     host0 = host_reading()
     w0 = time.perf_counter()
+    if group is not None:
+        group.opened()
     with peak if peak is not None else contextlib.nullcontext():
         window = _window(cell, kwargs, x, seed, seconds, trace, device,
-                         precision, target)
+                         precision, target, where, group)
     window_s = time.perf_counter() - w0
     host = host_change(host0, host_reading(), window_s)
     sweeps, failed = window["sweeps"], window["failed"]
@@ -275,13 +357,21 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
     gc.collect()
     if on_cuda:
         torch.cuda.empty_cache()
+    index = min(target, len(sweeps) - 1)
+    centroids, ranks = window["centroids"], None
+    if group is not None:
+        centroids, ranks = _gather_ranks(group, window, index, peak_bytes,
+                                         precision)
+        if group.rank != 0:
+            return None
 
     metrics: Dict[str, Dict[str, Any]] = {}
     notes = []
     if not trace:
         values = {
             "resamples_per_s": sum(s["resamples"] for s in sweeps) / window_s,
-            "peak_mem_gb": peak_bytes / 1e9,
+            "peak_mem_gb": (peak_bytes if ranks is None
+                            else max(ranks["peaks"])) / 1e9,
             "setup_s": setup_s,
         }
         for m in cell["end_to_end"]:
@@ -304,12 +394,12 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
           f"{len(sweeps)} sweep(s)", file=sys.stderr)
     t_check = time.perf_counter()
     if sweeps:
-        index = min(target, len(sweeps) - 1)
-        verdict = check.check_sweep(cell, x, sweeps[index],
-                                    window["centroids"], device)
+        extra = {} if ranks is None else {"rank_gap": ranks["gap"]}
+        verdict = check.check_sweep(cell, x, sweeps[index], centroids,
+                                    device, extra)
     else:
         verdict = {"correct": False, "numbers": {}}
-    window["centroids"] = {}
+    window["centroids"] = centroids = {}
     check_s = time.perf_counter() - t_check
     result: Dict[str, Any] = {
         "correct": failed == 0 and bool(sweeps) and verdict["correct"],
@@ -320,14 +410,20 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
             "platform": "gpu" if on_cuda else "cpu",
             "kind": torch.cuda.get_device_name(0) if on_cuda else "cpu",
             "count": int(cell["chips"]),
-            "memory_peak_bytes": int(peak_bytes),
+            "memory_peak_bytes": int(peak_bytes if ranks is None
+                                     else max(ranks["peaks"])),
         },
     }
+    if ranks is not None:
+        result["device"]["memory_peak_bytes_by_card"] = [
+            int(p) for p in ranks["peaks"]]
     if on_cuda:
         result["device"]["power"] = power_limit()
     summary = window["summary"]
     if trace and summary is not None:
-        result["device"]["busy_s"] = summary["busy_s"]
+        # Rank 0's trace; the busy seconds are the mean over the cards.
+        result["device"]["busy_s"] = (summary["busy_s"] if ranks is None
+                                      else float(np.mean(ranks["busy_s"])))
         result["device"]["window_s"] = summary["window_s"]
         result["breakdown"] = {"device_ops": summary["device_ops"],
                                "idle_gaps": summary["idle_gaps"]}
@@ -346,12 +442,61 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
     return result
 
 
+def _gather_ranks(group, window: Dict[str, Any], index: int,
+                  peak_bytes: int, precision: str):
+    """After the window, every rank's share of what rank 0 reports: the
+    checked sweep's captured outputs joined in resample order (each rank
+    clusters its own lanes; a rank's lanes follow the lower ranks' on a
+    mesh without 'k' shards, the only one a cell may ask for), the largest
+    gap between any rank's curves and choice and rank 0's (``gap``), each
+    card's peak and traced busy seconds.  Rank 0 gets them; the others
+    None."""
+    sweep = window["sweeps"][index] if window["sweeps"] else None
+    mine = {
+        "peak": int(peak_bytes),
+        "busy_s": (window["summary"] or {}).get("busy_s"),
+        "answer": None if sweep is None else {
+            "cdf": sweep["cdf"], "pac": sweep["pac"],
+            "best_k": sweep["best_k"]},
+        # The control computes every lane in each rank: rank 0's are all.
+        "captured": {k: [p.detach().cpu() for p in parts]
+                     for k, parts in window["centroids"].items()}
+        if precision == "float32" or group.rank == 0 else {},
+    }
+    everyone = group.gather(mine)
+    if group.rank != 0:
+        return None, None
+    captured: Dict[int, list] = {}
+    for other in everyone:
+        for k, parts in other["captured"].items():
+            captured.setdefault(k, []).extend(parts)
+    gap = 0.0
+    ref = everyone[0]["answer"]
+    for other in everyone[1:]:
+        got = other["answer"]
+        if ref is None or got is None:
+            gap = float("inf")
+            continue
+        for k in ref["cdf"]:
+            gap = max(gap, float(np.abs(np.asarray(got["cdf"][k])
+                                        - np.asarray(ref["cdf"][k])).max()),
+                      abs(got["pac"][k] - ref["pac"][k]))
+        gap = max(gap, float(abs(got["best_k"] - ref["best_k"])))
+    busy = [o["busy_s"] for o in everyone if o["busy_s"] is not None]
+    return captured, {"gap": gap, "peaks": [o["peak"] for o in everyone],
+                      "busy_s": busy}
+
+
 def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
-            device: str, precision: str, target: int) -> Dict[str, Any]:
+            device: str, precision: str, target: int, where: Dict[str, Any],
+            group=None) -> Dict[str, Any]:
     """The measured window: whole sweeps until ``seconds`` have passed,
     the first one profiled in a traced run; a sweep that raises is a
-    failed request and ends the window.  The centres of sweep ``target``
-    (or of the last sweep, where fewer ran) are kept for the check."""
+    failed request and ends the window (across processes it ends the
+    process: the other ranks wait in a collective, and the launcher ends
+    them).  Across processes rank 0 decides whether each sweep starts.
+    What the clusterer returned in sweep ``target`` (or in the last
+    sweep, where fewer ran) is kept for the check."""
     import importlib
 
     from consensus_clustering_tpu_torch import ConsensusClustering
@@ -360,14 +505,20 @@ def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
     out: Dict[str, Any] = {"sweeps": [], "failed": 0, "summary": None,
                            "spans": None, "centroids": {}}
     sweeps = out["sweeps"]
-    module, owner, attr = check.CLUSTERER
+    clusterer = cell["config"]["clusterer"]
+    module, owner, attr = clusterer.get("capture", check.CLUSTERER)
     owner = getattr(importlib.import_module(module), owner)
     capture = check.Capture()
     fit_fn = getattr(owner, attr)
     setattr(owner, attr, capture.wrap(fit_fn))
     try:
         w0 = time.perf_counter()
-        while not sweeps or time.perf_counter() - w0 < seconds:
+        while True:
+            go = not sweeps or time.perf_counter() - w0 < seconds
+            if group is not None:
+                go = group.decide(go)
+            if not go:
+                break
             rs = derived_seed(seed, 2, len(sweeps))
             capture.on = len(sweeps) <= target
             if capture.on:
@@ -380,12 +531,10 @@ def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
                         capture.by_k = centroids
                     sweeps.append(record)
                     continue
-                cc = ConsensusClustering(**kwargs, random_state=rs,
-                                         device=device)
+                cc = ConsensusClustering(**kwargs, random_state=rs, **where)
                 if trace and not sweeps:
                     fit_s, out["summary"], out["spans"] = _profiled_fit(
-                        cc, x, int(cell["config"]["clusterer"]["n_init"]),
-                        device)
+                        cc, x, int(clusterer.get("n_init", 1)), device)
                 else:
                     t0 = time.perf_counter()
                     cc.fit(x)
@@ -393,6 +542,8 @@ def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
             except Exception as e:  # noqa: BLE001 -- a failed request
                 print(f"sweep {len(sweeps)} failed: {type(e).__name__}: "
                       f"{e}", file=sys.stderr)
+                if group is not None:
+                    raise
                 out["failed"] += 1
                 break
             sweeps.append(sweep_result(cc, rs, fit_s))

@@ -6,7 +6,7 @@ call :func:`reference_sweep`; nothing here imports the measured program.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -14,10 +14,13 @@ import torch
 from portbench.reference import consensus as ref
 
 
-def sweep_params(config: Dict[str, Any], mode: str) -> Dict[str, Any]:
+def sweep_params(config: Dict[str, Any], mode: str,
+                 traffic_fit: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, Any]:
     """The reference's parameters of one sweep of a configuration
-    (``configs/<name>.json``) run in ``mode`` ("exact" or "estimate")."""
-    fit = config["fit"]
+    (``configs/<name>.json``) run in ``mode`` ("exact" or "estimate"),
+    with the fit's keys that its traffic adds (``traffic_fit``)."""
+    fit = {**config["fit"], **(traffic_fit or {})}
     k_lo, k_hi = fit["K_range"]
     n = int(config["data"]["n_samples"])
     out = {
@@ -37,11 +40,16 @@ def sweep_params(config: Dict[str, Any], mode: str) -> Dict[str, Any]:
 def reference_sweep(params: Dict[str, Any], x: np.ndarray, random_state: int,
                     ks: Iterable[int], device: str,
                     precision: str = "float32",
-                    exact_ks: Optional[List[int]] = None) -> Dict[str, Any]:
+                    exact_ks: Optional[List[int]] = None,
+                    cluster: Callable = ref.cluster) -> Dict[str, Any]:
     """The sweep of ``random_state`` at the Ks ``ks`` (the centre slots
     are the whole sweep's largest K, as the program lays them out).
+    ``cluster`` labels every resample for one K, with
+    :func:`..consensus.cluster`'s arguments and returns (KMeans), or a
+    lane clusterer of ``reference/clusterers/``.
 
-    Returns ``cdf``, ``pac`` and ``centroids`` (H, k_max, d) by K.  An
+    Returns ``cdf``, ``pac`` and ``fitted`` by K (what ``cluster``
+    returned beside the labels: KMeans's centres (H, k_max, d)).  An
     exact sweep's curves are exact; an estimated sweep's are the pair
     estimates, with ``exact_cdf`` and ``exact_pac`` added at ``exact_ks``
     (default: the K the rule chooses from the estimates)."""
@@ -55,14 +63,14 @@ def reference_sweep(params: Dict[str, Any], x: np.ndarray, random_state: int,
     if estimated:
         m = params["n_pairs"]
         pi, pj = ref.sample_pairs(random_state, n, m, device)
-    out: Dict[str, Any] = {"cdf": {}, "pac": {}, "centroids": {},
+    out: Dict[str, Any] = {"cdf": {}, "pac": {}, "fitted": {},
                            "exact_cdf": {}, "exact_pac": {}}
     labels_of = {}
     for k in ks:
-        labels, centroids = ref.cluster(xd, indices, key_cluster, k, k_max,
-                                        params["clusterer"], params["group"],
-                                        precision)
-        out["centroids"][k] = centroids
+        labels, fitted = cluster(xd, indices, key_cluster, k, k_max,
+                                 params["clusterer"], params["group"],
+                                 precision)
+        out["fitted"][k] = fitted
         if estimated:
             counts = ref.pair_hist_counts(indices, labels, n, pi, pj, bins)
             cdf, pac = ref.pair_curves(counts.cpu().numpy(), m, n,

@@ -26,7 +26,10 @@ def small_cell(name: str, n: int = 700, d: int = 10, h: int = 12,
     config, traffic = cell["config"], cell["traffic"]
     config["data"].update(n_samples=n, n_features=d, centers=4)
     fit = config["fit"]
-    fit.update(n_iterations=h, K_range=[2, k_hi], cluster_batch=4)
+    fit.update(n_iterations=h, K_range=[2, k_hi])
+    # Lane groups of 4, in whichever file sets the grouping.
+    grouping = traffic["fit"] if "cluster_batch" in traffic["fit"] else fit
+    grouping["cluster_batch"] = 4
     if "n_pairs" in fit:
         fit.update(n_pairs=4000, mode="estimate", stream_h_block=8)
     if "stream_h_block" in traffic["fit"]:

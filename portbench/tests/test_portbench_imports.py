@@ -53,7 +53,10 @@ def test_the_reference_loads_nothing_of_the_program():
 def test_the_reference_sources_import_only_numpy_torch_and_itself():
     allowed = {"__future__", "contextlib", "math", "typing", "numpy",
                "torch", "portbench"}
-    for name in os.listdir(REFERENCE):
+    # Subdirectories too: the lane clusterers and data generators that
+    # configurations add under reference/clusterers/ and reference/data/.
+    for name in [os.path.relpath(os.path.join(d, f), REFERENCE)
+                 for d, _, files in os.walk(REFERENCE) for f in files]:
         if not name.endswith(".py"):
             continue
         with open(os.path.join(REFERENCE, name)) as f:

@@ -30,7 +30,7 @@ WINDOW = "portbench.window"
 PREFIX = "portbench."
 _KERNEL_PREFIXES = ("lloyd_", "hist_kernel", "popcount_kernel",
                     "fused_planes_kernel", "fused_merge_kernel",
-                    "assign_kernel")
+                    "assign_kernel", "kmeanspp_")
 
 
 def kernel_class(name: str) -> str:
