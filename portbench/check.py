@@ -17,8 +17,18 @@ float32 sweep in any order of summation gives the same partitions:
   no precision bounds;
 - ``cdf_gap``: the largest gap between the program's and the reference's
   exact consensus CDF (every such K of an exact sweep; the refined K of an
-  estimated one, if it is such a K); a lane that parted ways may move a
-  few pairs across a bin edge, so the limit leaves room for a few;
+  estimated one, if it is such a K).  Where the limits name
+  ``parted_lanes``, the reference counts each lane that parted ways with
+  the labels the program's centres give it (below);
+- ``parted_lanes``: the lanes whose centres lie more than :data:`PARTED`
+  (relative) from the reference's.  Such a lane is no fault where it
+  reached another fixed point of Lloyd's step, as ``fixed_point_gap``
+  holds it, and its partition is then judged by the curves it gives; a
+  fault that moves many lanes fails this count;
+- ``fixed_point_gap``: the largest, over every lane of those Ks, relative
+  gap between the program's centres and one Lloyd step from them over the
+  lane's rows, in float64 (:func:`fixed_point_gaps`): about 0 at a fixed
+  point, no more than the tolerance lets a lane stop short of one;
 - ``est_cdf_gap``: estimated sweeps only, the largest gap between the
   sampled-pair CDF estimates (or the refined K's estimated PAC);
 - ``best_k_gap``: how far the chosen K lies from the choice the rule makes
@@ -53,6 +63,11 @@ from portbench.reference.sweep import reference_sweep, sweep_params
 
 #: Where the program's clusterer hands back its centres.
 CLUSTERER = ("consensus_clustering_tpu_torch.models.kmeans", "KMeans", "fit")
+#: A lane whose centres lie farther than this (relative) from the
+#: reference's has parted ways: sound lanes lie within about 2e-6.
+PARTED = 1e-3
+#: Lanes whose Lloyd step from their centres is taken at once.
+LANE_BLOCK = 16
 
 
 def checked_index(seed: int, within: int) -> int:
@@ -99,6 +114,63 @@ def lane_clusterer(cell: Dict[str, Any]
     return module.cluster, getattr(module, "numbers", None)
 
 
+def fixed_point_gaps(x: torch.Tensor, indices: torch.Tensor,
+                     centres: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's relative gap (L,) between its first k centres
+    (L, k_max, d) and one Lloyd step from them over its rows x[indices]
+    (L, n, d), in float64: every row to its nearest centre (the lowest on
+    ties), each centre to its rows' mean; inf where a centre keeps no row.
+    Returns the gaps and those labels (L, n)."""
+    gaps, labels = [], []
+    for l0 in range(0, indices.shape[0], LANE_BLOCK):
+        xs = x[indices[l0:l0 + LANE_BLOCK]].double()
+        c = centres[l0:l0 + LANE_BLOCK, :k].to(xs.device).double()
+        dist = ((xs * xs).sum(-1, keepdim=True)
+                - 2.0 * torch.matmul(xs, c.transpose(1, 2))
+                + (c * c).sum(-1)[:, None, :])
+        lab = dist.argmin(-1)
+        onehot = torch.nn.functional.one_hot(lab, k).double()
+        counts = onehot.sum(1)
+        means = (torch.matmul(onehot.transpose(1, 2), xs)
+                 / counts.clamp(min=1.0)[..., None])
+        gap = ((means - c).flatten(1).norm(dim=1)
+               / c.flatten(1).norm(dim=1).clamp(min=1e-30))
+        gaps.append(torch.where((counts == 0).any(-1),
+                                torch.full_like(gap, float("inf")), gap))
+        labels.append(lab)
+    return torch.cat(gaps), torch.cat(labels)
+
+
+def lane_judge(lanes_by_k: Dict[int, torch.Tensor], found: Dict[str, Any]
+               ) -> Callable:
+    """The reference sweep's ``relabel``: at each K it takes every
+    program lane's fixed-point gap (``lanes_by_k``: centres (H, k_max, d),
+    one sweep) and counts the lanes that parted ways from the reference's,
+    into ``found``'s ``fixed_point_gap`` and ``parted_lanes``; a parted
+    lane's labels become those its centres give."""
+    found["parted_lanes"] = 0.0
+    found["fixed_point_gap"] = 0.0
+
+    def relabel(k, x, indices, labels, fitted):
+        got = lanes_by_k.get(k)
+        if got is None:
+            return labels
+        gaps, own = fixed_point_gaps(x, indices, got, k)
+        found["fixed_point_gap"] = max(found["fixed_point_gap"],
+                                       float(gaps.max()))
+        parted = torch.nonzero(ref.centroid_gaps(got, fitted, k)
+                               > PARTED).flatten()
+        found["parted_lanes"] += float(parted.numel())
+        if not parted.numel():
+            return labels
+        labels = labels.clone()
+        labels[parted] = own[parted].to(labels.device, labels.dtype)
+        return labels
+
+    return relabel
+
+
 def check_sweep(cell: Dict[str, Any], x: np.ndarray, sweep: Dict[str, Any],
                 centroids: Dict[int, List[torch.Tensor]], device: str,
                 extra: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
@@ -125,27 +197,34 @@ def check_sweep(cell: Dict[str, Any], x: np.ndarray, sweep: Dict[str, Any],
     refined = sweep.get("refined_k")
     exact_ks = [refined] if estimated and refined in checked else []
     cluster, numbers_of = lane_clusterer(cell)
-    r = reference_sweep(params, x, sweep["random_state"], checked, device,
-                        exact_ks=exact_ks, cluster=cluster)
     centres = "centroid_gap" in limits
-    gaps, by_k, lanes_by_k = [], {}, {}
+    judged_lanes = "parted_lanes" in limits or "fixed_point_gap" in limits
+    lanes_by_k = {}
     for k in checked:
-        if centres or numbers_of is not None:
+        if centres or judged_lanes or numbers_of is not None:
             parts = centroids.get(k, [])
             rows = sum(int(p.shape[0]) for p in parts)
-            if not rows or rows % h:
+            if not rows or rows % h or (judged_lanes and rows != h):
                 notes.append(f"K={k}: {rows} captured lanes, not whole "
-                             f"sweeps of {h}")
+                             f"sweeps of {h}" + (", one sweep"
+                                                 if judged_lanes else ""))
+            else:
+                lanes_by_k[k] = torch.cat([p.to(device) for p in parts])
+    relabel = lane_judge(lanes_by_k, found) if judged_lanes else None
+    r = reference_sweep(params, x, sweep["random_state"], checked, device,
+                        exact_ks=exact_ks, cluster=cluster, relabel=relabel)
+    gaps, by_k = [], {}
+    for k in checked:
+        if centres:
+            got = lanes_by_k.get(k)
+            if got is None:
                 gaps.append(torch.tensor([float("inf")]))
             else:
-                lanes_by_k[k] = got = torch.cat([p.to(device)
-                                                 for p in parts])
-                if centres:
-                    at_k = torch.cat([ref.centroid_gaps(
-                        got[p0:p0 + h], r["fitted"][k], k).cpu()
-                        for p0 in range(0, rows, h)])
-                    gaps.append(at_k)
-                    by_k[k] = float(at_k.max())
+                at_k = torch.cat([ref.centroid_gaps(
+                    got[p0:p0 + h], r["fitted"][k], k).cpu()
+                    for p0 in range(0, got.shape[0], h)])
+                gaps.append(at_k)
+                by_k[k] = float(at_k.max())
         if estimated:
             if k == refined:
                 est = abs(sweep["pac_estimate_at_refined_k"] - r["pac"][k])

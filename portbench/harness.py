@@ -7,8 +7,11 @@ fit's keyword arguments that define it) and a traffic mix
 (``traffic/<traffic>.json``: the keyword arguments of the engine this
 traffic drives, the warm-up size); ``workloads/<cell>.json`` holds what
 the check of its answers compares and the limits.  Per-layer metrics are
-read by ``metrics/<name>.py``.  Adding a cell, a configuration or a metric
-is adding a file.
+read by ``metrics/<name>.py`` from the traced sweep's record: the trace's
+summary, the program's own ranges (``cc.*``) and counters (its
+``metrics_``), and the spans of the kernel launchers that
+``bounds/<span>.py`` name.  Adding a cell, a configuration, a metric, a
+program range, a counter or a kernel's bound is adding a file.
 
 A configuration names its data generator, its clusterer and, where the
 check reads what the clusterer returns, the program's function to capture
@@ -132,7 +135,8 @@ def load_cell(name: str, root: str = ROOT) -> Dict[str, Any]:
             "processes": processes,
             "end_to_end": end_to_end, "per_layer": per_layer,
             "bench_dir": bench, "root": root,
-            "metrics_dir": os.path.join(bench, "metrics")}
+            "metrics_dir": os.path.join(bench, "metrics"),
+            "bounds_dir": os.path.join(bench, "bounds")}
 
 
 def _module(path: str, name: str):
@@ -312,6 +316,7 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
         enable_compilation_cache,
     )
     from portbench import check
+    from portbench import trace as tracing
 
     if precision not in ("float32", "tf32"):
         raise ValueError(f"precision must be float32 or tf32, got "
@@ -379,7 +384,9 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
                                   "unit": m["unit"]}
     else:
         record = {"sweeps": sweeps, "trace": window["summary"] or {},
-                  "spans": window["spans"] or {}}
+                  "spans": window["spans"] or {},
+                  "program": window["program"] or {"ranges": {},
+                                                   "metrics": {}}}
         for m in cell["per_layer"]:
             value = reader(cell["metrics_dir"], m["name"])(record)
             if value is None:
@@ -425,8 +432,13 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
         result["device"]["busy_s"] = (summary["busy_s"] if ranks is None
                                       else float(np.mean(ranks["busy_s"])))
         result["device"]["window_s"] = summary["window_s"]
-        result["breakdown"] = {"device_ops": summary["device_ops"],
-                               "idle_gaps": summary["idle_gaps"]}
+        # Idle gaps by the program range the host was in.
+        ranges = (window["program"] or {}).get("ranges") or {}
+        result["breakdown"] = {
+            "device_ops": summary["device_ops"],
+            "idle_gaps": tracing.longest({name: e["idle_s"]
+                                          for name, e in ranges.items()
+                                          if e["idle_s"]})}
     result["notes"] = notes
     result["seconds"] = {"setup": setup_s, "window": window_s,
                          "check": check_s,
@@ -503,7 +515,7 @@ def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
     from portbench import check, control
 
     out: Dict[str, Any] = {"sweeps": [], "failed": 0, "summary": None,
-                           "spans": None, "centroids": {}}
+                           "spans": None, "program": None, "centroids": {}}
     sweeps = out["sweeps"]
     clusterer = cell["config"]["clusterer"]
     module, owner, attr = clusterer.get("capture", check.CLUSTERER)
@@ -533,8 +545,8 @@ def _window(cell, kwargs, x, seed: int, seconds: float, trace: bool,
                     continue
                 cc = ConsensusClustering(**kwargs, random_state=rs, **where)
                 if trace and not sweeps:
-                    fit_s, out["summary"], out["spans"] = _profiled_fit(
-                        cc, x, int(clusterer.get("n_init", 1)), device)
+                    (fit_s, out["summary"], out["spans"],
+                     out["program"]) = _profiled_fit(cc, x, cell, device)
                 else:
                     t0 = time.perf_counter()
                     cc.fit(x)
@@ -599,30 +611,47 @@ def _why_missing(record: Dict[str, Any]) -> str:
     return "the traced window holds none of what it reads"
 
 
-def _profiled_fit(cc, x, n_init: int, device: str):
-    """One sweep under the profiler with the spans installed: the fit's
-    seconds (the profiler's own teardown left out), the trace's summary
-    and the spans' record.  The profiler records the benchmark's ranges
-    and, on the card, the launches and device operations, but none of
-    PyTorch's own operators (:func:`portbench.trace.profiling`)."""
+def _plain(value):
+    """A value of the program's ``metrics_`` as JSON takes it."""
+    if hasattr(value, "tolist"):
+        return value.tolist()
+    return str(value)
+
+
+def _profiled_fit(cc, x, cell: Dict[str, Any], device: str):
+    """One sweep under the profiler, with the program's ranges recorded
+    and the launchers of ``bounds/`` wrapped: the fit's seconds (the
+    profiler's own teardown left out), the trace's summary, the spans'
+    record, and the program's record (its ranges,
+    :func:`portbench.trace.summarize_program`, and the sweep's whole
+    ``metrics_`` as JSON).  The profiler records user ranges and, on the
+    card, the launches and device operations, but none of PyTorch's own
+    operators (:func:`portbench.trace.profiling`)."""
     import torch
 
     from portbench import spans
     from portbench import trace as tracing
 
-    watched = spans.Spans(n_init)
+    from consensus_clustering_tpu_torch.obs.tracing import recording_ranges
+
+    watched = spans.Spans(cell["config"], cell["bounds_dir"])
     with watched.installed():
         with tracing.profiling(device == "cuda") as prof:
-            with torch.profiler.record_function(tracing.WINDOW):
-                t0 = time.perf_counter()
-                cc.fit(x)
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                fit_s = time.perf_counter() - t0
+            with recording_ranges():
+                with torch.profiler.record_function(tracing.WINDOW):
+                    t0 = time.perf_counter()
+                    cc.fit(x)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    fit_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    summary = tracing.summarize(prof.events())
+    events = prof.events()
+    summary = tracing.summarize(events)
+    program = {"ranges": tracing.summarize_program(events) or {},
+               "metrics": json.loads(json.dumps(cc.metrics_,
+                                                default=_plain))}
     print(f"portbench: profiler stop {t1 - t0 - fit_s:.3f} s, trace read "
           f"{time.perf_counter() - t1:.3f} s", file=sys.stderr)
     record = watched.record()
     record["_missing"] = dict(watched.missing)
-    return fit_s, summary, record
+    return fit_s, summary, record, program

@@ -1,13 +1,22 @@
-"""Shared by the readers: a span's host share of the traced window and
-the roofline share of the device operations a span launched."""
+"""Shared by the readers: a program range's entry and its host share of
+the traced window, and the roofline share of the device operations a
+benchmark span launched."""
 
 
-def host_share(record, span):
-    """Percent of the traced window the host spent inside ``span``; None
-    where the span or the window is missing."""
-    entry = record["spans"].get(span)
+def program_range(record, name):
+    """The traced sweep's entry of the program range ``name``
+    (:func:`portbench.trace.summarize_program`), None where it never
+    opened."""
+    entry = record["program"]["ranges"].get(name)
+    return entry if entry and entry["calls"] else None
+
+
+def program_share(record, name):
+    """Percent of the traced window the host spent inside the program
+    range ``name``; None where the range or the window is missing."""
+    entry = program_range(record, name)
     window = record["trace"].get("window_s")
-    if entry is None or not window or not entry["calls"]:
+    if entry is None or not window:
         return None
     return 100.0 * entry["host_s"] / window
 

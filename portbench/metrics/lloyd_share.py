@@ -1,6 +1,6 @@
-"""clusterer Lloyd loop: host time inside ``models/kmeans.KMeans._lloyd``
-(every Lloyd step with its host round trip, B2 included) as a share of the
-traced window.
+"""clusterer Lloyd loop: host time inside the program's range
+``cc.kmeans.lloyd`` (``models/kmeans.KMeans._lloyd``: every Lloyd step
+with its host round trip, B2 included) as a share of the traced window.
 
 The window is the profiled sweep's, which the light profile
 (:func:`portbench.trace.profiling`: ranges, launches and device operations,
@@ -8,8 +8,8 @@ no PyTorch operators) slows by the factor the result gives as
 ``seconds.trace_inflation`` (that sweep's wall over the untraced ones').
 """
 
-from portbench.metrics._share import host_share
+from portbench.metrics._share import program_share
 
 
 def read(record):
-    return host_share(record, "lloyd")
+    return program_share(record, "cc.kmeans.lloyd")

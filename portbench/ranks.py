@@ -17,6 +17,15 @@ the command exits with its code (137 for a rank killed by a signal); a
 run whose set-up has not ended :data:`SETUP_LIMIT_S` after the command
 started, or whose window has not ended :data:`GRACE_S` past
 ``--seconds``, is ended with exit 4.  A rank dies with its launcher.
+
+The coordinator's port is one the launcher found free; another socket
+may take it before rank 0 binds it (a rank's own connection, whose local
+port the system draws from the same pool).  Rank 0 then exits with
+:data:`RENDEZVOUS_FAILED` and the launcher starts every rank again on
+another port, up to :data:`RENDEZVOUS_TRIES` times, within the set-up's
+limit; the result's notes say how often, since ``setup_s`` then holds the
+failed attempts too.  Any other failure to rendezvous, or one of another
+rank, ends the run as any error does.
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ SETUP_LIMIT_S = 600.0
 #: the traced sweep's reading, the check: under a minute).
 GRACE_S = 240.0
 _POLL_S = 0.5
+#: Rank 0's exit when its coordinator's port was taken (``EADDRINUSE``).
+RENDEZVOUS_FAILED = 75
+RENDEZVOUS_TRIES = 3
 _RESULT = "result.json"
 _OPENED = "window_opened"
 
@@ -107,7 +119,6 @@ def launch(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
         "--seed", str(seed), "--seconds", repr(float(seconds)),
         "--trace", str(int(trace)), "--precision", precision,
         "--device", device, "--world", str(world),
-        "--coordinator", f"127.0.0.1:{_free_port()}",
         "--run-dir", run_dir, "--t0", repr(t0), "--parent", str(os.getpid()),
     ] + (["--fault", fault] if fault else [])
     procs: List[subprocess.Popen] = []
@@ -120,27 +131,46 @@ def launch(cell: Dict[str, Any], seed: int, seconds: float, trace: bool,
     if main_thread:
         signal.signal(signal.SIGTERM, on_term)
     try:
-        for rank in range(world):
+        retries = 0
+        for _ in range(RENDEZVOUS_TRIES):
+            coordinator = ["--coordinator", f"127.0.0.1:{_free_port()}"]
             # A rank's standard output goes to standard error: the
             # launcher's holds the one result line alone.
-            procs.append(subprocess.Popen(command + ["--rank", str(rank)],
-                                          stdout=2))
-        print(f"portbench: {world} ranks, pids "
-              f"{[p.pid for p in procs]}", file=sys.stderr, flush=True)
-        code = _watch(procs, run_dir, seconds, t0)
+            procs = []
+            for rank in range(world):
+                procs.append(subprocess.Popen(
+                    command + coordinator + ["--rank", str(rank)], stdout=2))
+            print(f"portbench: {world} ranks, pids "
+                  f"{[p.pid for p in procs]}", file=sys.stderr, flush=True)
+            code = _watch(procs, run_dir, seconds, t0)
+            if code != RENDEZVOUS_FAILED:
+                break
+            retries += 1
+            _end(procs)
+            print("portbench: the coordinator's port was taken; starting "
+                  "the ranks again on another", file=sys.stderr, flush=True)
         result = None
         if code == 0:
             with open(os.path.join(run_dir, _RESULT)) as f:
                 result = json.load(f)
+            if retries:
+                result["notes"].append(
+                    f"the ranks started {retries + 1} times, the "
+                    f"coordinator's port taken before; setup_s holds the "
+                    f"failed starts")
         return code, result
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+        _end(procs)
         if main_thread:
             signal.signal(signal.SIGTERM, ended)
         shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _end(procs: List[subprocess.Popen]) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
 
 
 def _watch(procs: List[subprocess.Popen], run_dir: str, seconds: float,
@@ -223,8 +253,15 @@ def main(argv=None) -> int:
         return 2
     from portbench import faults
 
-    distributed.initialize(args.coordinator, num_processes=args.world,
-                           process_id=args.rank, local_devices=local)
+    try:
+        distributed.initialize(args.coordinator, num_processes=args.world,
+                               process_id=args.rank, local_devices=local)
+    except torch.distributed.DistNetworkError as e:
+        print(f"portbench: rank {args.rank} could not rendezvous: {e}",
+              file=sys.stderr, flush=True)
+        if args.rank == 0 and "EADDRINUSE" in str(e):
+            return RENDEZVOUS_FAILED
+        return 1
     if distributed.backend() != traffic["backend"]:
         print(f"portbench: the ranks merge over {distributed.backend()}, "
               f"the traffic states {traffic['backend']}", file=sys.stderr)

@@ -41,12 +41,16 @@ def reference_sweep(params: Dict[str, Any], x: np.ndarray, random_state: int,
                     ks: Iterable[int], device: str,
                     precision: str = "float32",
                     exact_ks: Optional[List[int]] = None,
-                    cluster: Callable = ref.cluster) -> Dict[str, Any]:
+                    cluster: Callable = ref.cluster,
+                    relabel: Optional[Callable] = None) -> Dict[str, Any]:
     """The sweep of ``random_state`` at the Ks ``ks`` (the centre slots
     are the whole sweep's largest K, as the program lays them out).
     ``cluster`` labels every resample for one K, with
     :func:`..consensus.cluster`'s arguments and returns (KMeans), or a
-    lane clusterer of ``reference/clusterers/``.
+    lane clusterer of ``reference/clusterers/``.  ``relabel(k, x,
+    indices, labels, fitted)``, where given, returns the labels the
+    counts take at K (the check's lanes that parted ways,
+    :func:`portbench.check.lane_judge`).
 
     Returns ``cdf``, ``pac`` and ``fitted`` by K (what ``cluster``
     returned beside the labels: KMeans's centres (H, k_max, d)).  An
@@ -71,6 +75,8 @@ def reference_sweep(params: Dict[str, Any], x: np.ndarray, random_state: int,
                                  params["clusterer"], params["group"],
                                  precision)
         out["fitted"][k] = fitted
+        if relabel is not None:
+            labels = relabel(k, xd, indices, labels, fitted)
         if estimated:
             counts = ref.pair_hist_counts(indices, labels, n, pi, pj, bins)
             cdf, pac = ref.pair_curves(counts.cpu().numpy(), m, n,

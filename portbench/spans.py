@@ -1,74 +1,71 @@
-"""Spans the benchmark puts around the program's layers in a traced run.
+"""Spans the benchmark puts around the program's kernel launchers in a
+traced run, for the bounds of the roofline metrics.
 
-Each span wraps one function of the port by its module and attribute
-name: inside it the host time is summed and a ``torch.profiler``
-range ``portbench.<span>`` is open, so the trace can tell which layer the
-host was in and which device kernels a layer launched.  A span may record
-the work of each call from its arguments' shapes (the roofline metrics'
-bounds), without reading the device.  A name the program no longer has is
-reported missing, never wrapped silently.
+Each file ``bounds/<span>.py`` names one launcher of the port by its
+module and attribute (``MODULE``, ``ATTRIBUTE``) and holds
+``bound_ms(config, *args, **kwargs)``: the least milliseconds a call's
+work could take on the card, from the configuration of the cell
+(``configs/<config>.json``) and the call's arguments' shapes, without
+reading the device.  While installed, each launcher so named is wrapped:
+inside it the host time is summed, its bound recorded and a
+``torch.profiler`` range ``portbench.<span>`` is open, so the trace can
+tell which device operations the calls launched.  Adding a kernel's bound
+is adding its file; a name the program no longer has is reported
+missing, never wrapped silently.
+
+The layers above the launchers are the program's own ranges (``cc.*``,
+``obs/tracing.region``) and counters (``metrics_``), which the harness
+records beside these spans: a program range, a counter or a kernel's
+bound is read by adding files.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
+import os
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
-
-from portbench import peaks
 
 PREFIX = "portbench."
 
 
-def _lloyd_step_bound(n_init: int) -> Callable[..., float]:
-    def bound(x, lane_src, centroids, k, *args, **kwargs) -> float:
-        resamples, rows, d = x.shape
-        lanes = centroids.shape[0]
-        return peaks.lloyd_step_bound_ms(
-            peaks.lloyd_resamples_read(lanes, resamples, n_init), rows, d,
-            lanes, int(k))
-    return bound
-
-
-def _popcount_bound(row_words, col_words, *args, **kwargs) -> float:
-    words, rows = row_words.shape
-    return peaks.popcount_bound_ms(words, rows, col_words.shape[1])
-
-
-def span_table(n_init: int) -> List[Tuple[str, str, str, Optional[Callable]]]:
-    """(span, module, attribute, bound of a call or None), outermost
-    layers first."""
-    kmeans = "consensus_clustering_tpu_torch.models.kmeans"
-    return [
-        ("kmeanspp", kmeans, "_kmeanspp_init", None),
-        ("lloyd", kmeans, "KMeans._lloyd", None),
-        ("assign", kmeans, "assign_labels", None),
-        ("b2", "consensus_clustering_tpu_torch.ops.lloyd",
-         "lloyd_step_kernel", _lloyd_step_bound(n_init)),
-        ("b3", "consensus_clustering_tpu_torch.ops.popcount",
-         "packed_coassoc_counts_kernel", _popcount_bound),
-    ]
+def span_table(bounds_dir: str) -> List[Tuple[str, str, str, Callable]]:
+    """(span, module, attribute, bound of a call) of each
+    ``bounds/<span>.py``, in the order of their names."""
+    table = []
+    for entry in sorted(os.listdir(bounds_dir)):
+        name, ext = os.path.splitext(entry)
+        if ext != ".py" or name.startswith("_"):
+            continue
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_bounds_{name}", os.path.join(bounds_dir, entry))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        table.append((name, module.MODULE, module.ATTRIBUTE,
+                      module.bound_ms))
+    return table
 
 
 class Spans:
     """Host seconds, calls and call bounds of each span while installed."""
 
-    def __init__(self, n_init: int):
-        self.table = span_table(n_init)
+    def __init__(self, config: Dict[str, Any], bounds_dir: str):
+        self.config = config
+        self.table = span_table(bounds_dir)
         self.host_s: Dict[str, float] = {}
         self.calls: Dict[str, int] = {}
         self.bounds_ms: Dict[str, List[float]] = {}
         self.missing: Dict[str, str] = {}
 
-    def _wrap(self, name: str, fn: Callable, bound) -> Callable:
+    def _wrap(self, name: str, fn: Callable, bound: Callable) -> Callable:
         label = PREFIX + name
 
         def wrapper(*args, **kwargs):
-            if bound is not None:
-                self.bounds_ms[name].append(bound(*args, **kwargs))
+            self.bounds_ms[name].append(bound(self.config, *args, **kwargs))
             t0 = time.perf_counter()
             with torch.profiler.record_function(label):
                 out = fn(*args, **kwargs)
@@ -81,7 +78,7 @@ class Spans:
 
     @contextlib.contextmanager
     def installed(self) -> Iterator["Spans"]:
-        """Wrap every function of the table that exists; restore on exit."""
+        """Wrap every launcher of the table that exists; restore on exit."""
         saved: List[Tuple[Any, str, Any]] = []
         for name, module_name, attr, bound in self.table:
             self.host_s[name] = 0.0

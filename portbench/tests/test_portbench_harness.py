@@ -9,6 +9,7 @@ import json
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -161,8 +162,10 @@ def _two_ranks(root, limits):
 
 
 def test_two_ranks_equal_one_process_and_a_fault_is_refused(tmp_path):
-    limits = {"centroid_gap": 2e-06, "cdf_gap": 5e-05, "best_k_gap": 0,
-              "rank_gap": 0}
+    # The four-card cell's own numbers and limits.
+    with open(os.path.join(ROOT, "portbench", "workloads",
+                           "blobs20k_stream_4chip.json")) as f:
+        limits = json.load(f)["limits"]
     cell = _two_ranks(_checkout(tmp_path), limits)
     code, result = ranks.launch(cell, SEED, 0.0, False, device="cpu")
     assert code == 0 and result["correct"] is True
@@ -179,6 +182,24 @@ def test_two_ranks_equal_one_process_and_a_fault_is_refused(tmp_path):
     assert code == 0 and faulty["correct"] is False
     assert faulty["check"]["cdf_gap"]["value"] > 5e-05
     assert faulty["check"]["rank_gap"]["value"] > 0
+
+
+def test_a_taken_coordinator_port_starts_the_ranks_again(tmp_path,
+                                                          monkeypatch,
+                                                          capfd):
+    cell = _two_ranks(_checkout(tmp_path),
+                      {"cdf_gap": 5e-05, "best_k_gap": 0, "rank_gap": 0})
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        ports = [taken.getsockname()[1]]
+        free = ranks._free_port
+        monkeypatch.setattr(ranks, "_free_port",
+                            lambda: ports.pop() if ports else free())
+        code, result = ranks.launch(cell, SEED, 0.0, False, device="cpu")
+    assert code == 0 and result["correct"] is True
+    assert "starting the ranks again" in capfd.readouterr().err
+    assert any("started 2 times" in note for note in result["notes"])
 
 
 def test_a_killed_rank_ends_the_run(tmp_path):

@@ -94,7 +94,9 @@ def test_every_cell_resolves_to_its_files_and_readers(cell):
     assert kwargs["plot_cdf"] is False and kwargs["K_range"]
     limits = c["workload"]["limits"]
     assert set(limits) <= {"centroid_gap", "cdf_gap", "est_cdf_gap",
-                           "best_k_gap", "rank_gap"}
+                           "best_k_gap", "rank_gap", "parted_lanes",
+                           "fixed_point_gap"}
+    assert ("parted_lanes" in limits) == ("fixed_point_gap" in limits)
     assert ("rank_gap" in limits) == (c["processes"] > 1)
     assert c["workload"]["check"]["mode"] in ("exact", "estimate")
     assert int(c["workload"]["check"]["within"]) >= 1
